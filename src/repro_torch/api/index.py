@@ -1,0 +1,185 @@
+"""The Index handle: one method-style surface over every backend (port of
+``repro.api.index``).
+
+An ``Index`` is (static spec, state): ``spec`` holds the registered
+``BackendSpec`` (a table of functions) and the backend's config; ``state``
+is the backend's tensors (a ``DeltaTree``).  Methods delegate through the
+spec; ``capability`` says which ones a backend supports
+(``CapabilityError`` otherwise).  Reads take keys as a tensor, a numpy
+array or a list and return tensors on the index's device.
+
+Updates run in place on the state's tensors: ``insert_delete`` returns a
+handle over the same (updated) state, and the old handle must not be read
+as a snapshot of the pre-update set.  Rebind as in the JAX package:
+``ix, res = ix.insert_delete(batch)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.api.opbatch import OpBatch
+
+
+@dataclasses.dataclass(frozen=True)
+class Capability:
+    """What an Index backend supports (fields as in the JAX package)."""
+
+    map_mode: bool = False    # key -> payload lookups (else set semantics)
+    successor: bool = False   # ordered successor queries
+    sharded: bool = False     # state fans out over several devices
+    updates: bool = True      # insert_delete supported at all
+    deferred_maintenance: bool = False  # non-eager policies + flush()
+    fused_forest: bool = False  # sharded reads share one fused frontier
+    range_scan: bool = False  # ordered range pages (range_scan + cursors)
+    successor_k: bool = False  # bulk k-successor reads (successor_k)
+
+
+class CapabilityError(NotImplementedError):
+    """Raised when an Index method is not in the backend's Capability."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    """Registry entry: a table of functions over (cfg, state).
+
+    Required hooks: ``make``, ``capability``, ``search``, ``update``,
+    ``live_items``, ``size``.  Optional hooks may be None and are gated by
+    ``capability(cfg)``: ``lookup`` (map_mode), ``successor``.
+    ``alloc_failed`` (sticky arena-exhaustion flag) and ``flush`` are
+    optional.  ``engines`` lists the SearchEngine names the backend's read
+    path can run under (``"*"``: every engine registered in
+    ``repro_torch.core.engine``); ``maintenance`` the policy kinds it
+    accepts.
+    """
+
+    name: str
+    make: Callable[..., tuple[Any, Any]]        # (initial, payloads, **kw)
+    capability: Callable[[Any], Capability]     # cfg -> Capability
+    search: Callable[..., Any]                  # (cfg, state, keys) -> (found, hops)
+    update: Callable[..., Any]                  # (cfg, state, OpBatch) -> (state, results, stats)
+    live_items: Callable[..., Any]              # (cfg, state) -> [(key, payload)]
+    size: Callable[..., int]                    # (cfg, state) -> int
+    lookup: Callable[..., Any] | None = None    # (cfg, state, keys) -> (found, payload, hops)
+    successor: Callable[..., Any] | None = None  # (cfg, state, keys) -> (found, succ)
+    alloc_failed: Callable[..., bool] | None = None  # (cfg, state) -> bool
+    flush: Callable[..., Any] | None = None     # (cfg, state) -> (state, stats)
+    engines: tuple[str, ...] = ("scalar",)      # selectable read engines
+    maintenance: tuple[str, ...] = ("eager",)   # selectable policy kinds
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexSpec:
+    """Static half of an Index."""
+
+    backend: BackendSpec
+    cfg: Any
+
+
+class Index:
+    """Handle over one backend instance."""
+
+    __slots__ = ("spec", "state")
+
+    def __init__(self, spec: IndexSpec, state: Any):
+        object.__setattr__(self, "spec", spec)
+        object.__setattr__(self, "state", state)
+
+    def __setattr__(self, name, value):
+        raise AttributeError(
+            "Index is immutable; rebind the handle returned by insert_delete")
+
+    def __repr__(self):
+        return (f"Index(backend={self.spec.backend.name!r}, "
+                f"cfg={self.spec.cfg!r})")
+
+    # ---- static introspection ----
+
+    @property
+    def backend(self) -> str:
+        return self.spec.backend.name
+
+    @property
+    def cfg(self) -> Any:
+        return self.spec.cfg
+
+    @property
+    def capability(self) -> Capability:
+        return self.spec.backend.capability(self.spec.cfg)
+
+    @property
+    def engine(self) -> str:
+        """Active SearchEngine name."""
+        return getattr(self.spec.cfg, "engine", None) or "scalar"
+
+    @property
+    def maintenance(self) -> str:
+        """Active maintenance policy string."""
+        return getattr(self.spec.cfg, "maintenance", None) or "eager"
+
+    def _require(self, flag: str, hook) -> None:
+        if not getattr(self.capability, flag) or hook is None:
+            raise CapabilityError(
+                f"backend {self.backend!r} does not support {flag!r} "
+                f"(capability: {self.capability})")
+
+    # ---- wait-free reads ----
+
+    def search(self, keys):
+        """Membership on the current state. Returns (found[K], hops[K])."""
+        return self.spec.backend.search(self.spec.cfg, self.state, keys)
+
+    def lookup(self, keys):
+        """Map-mode read. Returns (found[K], payload[K], hops[K])."""
+        self._require("map_mode", self.spec.backend.lookup)
+        return self.spec.backend.lookup(self.spec.cfg, self.state, keys)
+
+    def successor(self, keys):
+        """Smallest stored key strictly greater. Returns (found[K], succ[K])."""
+        self._require("successor", self.spec.backend.successor)
+        return self.spec.backend.successor(self.spec.cfg, self.state, keys)
+
+    # ---- updates ----
+
+    def insert_delete(self, batch: OpBatch):
+        """Apply one OpBatch in batch order. Returns (new Index, results[K]).
+
+        OP_SEARCH rows are no-ops with result False.  The state is updated
+        in place (`update` is the same call keeping the MaintenanceStats).
+        """
+        ix, results, _ = self.update(batch)
+        return ix, results
+
+    def update(self, batch: OpBatch):
+        """`insert_delete` returning telemetry: (new Index, results[K],
+        MaintenanceStats)."""
+        self._require("updates", self.spec.backend.update)
+        state, results, stats = self.spec.backend.update(
+            self.spec.cfg, self.state, batch)
+        return Index(self.spec, state), results, stats
+
+    def flush(self):
+        """Drain pending maintenance to fixpoint.  Returns (new Index,
+        MaintenanceStats | None)."""
+        if self.spec.backend.flush is None:
+            return self, None
+        state, stats = self.spec.backend.flush(self.spec.cfg, self.state)
+        return Index(self.spec, state), stats
+
+    # ---- host-side diagnostics ----
+
+    def size(self) -> int:
+        """Number of live keys (host-side)."""
+        return int(self.spec.backend.size(self.spec.cfg, self.state))
+
+    def live_items(self) -> list[tuple[int, int]]:
+        """All live (key, payload) pairs in ascending key order (host-side,
+        for tests)."""
+        return list(self.spec.backend.live_items(self.spec.cfg, self.state))
+
+    def alloc_failed(self) -> bool:
+        """Sticky arena-exhaustion flag (False for unbounded backends)."""
+        if self.spec.backend.alloc_failed is None:
+            return False
+        return bool(self.spec.backend.alloc_failed(self.spec.cfg, self.state))

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper and the walk loops around them (port
+of ``repro.kernels``).
+
+- csrc/veb_walk.cu — the vEB walk kernels (fused multi-round, and one
+  round over pre-gathered rows)
+- build.py         — nvcc build at first use, ctypes loading
+- veb_search.py    — the wrappers (CUDA tensor -> kernel, CPU -> ref)
+- ref.py           — the plain PyTorch versions (CPU path, ground truth)
+- ops.py           — the multi-round walk (public API)
+"""

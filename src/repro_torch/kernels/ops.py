@@ -1,0 +1,149 @@
+"""The multi-round walk around the kernels (port of ``repro.kernels.ops``).
+
+- `delta_walk`     — multi-round walk over the query frontier: every active
+  query descends its current ΔNode fully, hops to the child ΔNode, repeats
+  until it lands on its leaf.  Reports per-query hop counts (= rounds
+  active = ΔNodes visited) and the folded successor candidate.  ``root``
+  may be per-query.  This is the engine room of the ``"lockstep"``
+  SearchEngine (`repro_torch.core.engine`) and of the lockstep update
+  path.  Two loops share the contract bit for bit:
+    * fused (default): all rounds inside one `veb_search.veb_walk_fused`
+      launch;
+    * per-round (``fused=False``): one `veb_search.veb_walk_rows` launch
+      per frontier round over rows gathered here — the parity oracle for
+      the fused kernel.
+- `delta_search`   — the 3-tuple (leaf_val, leaf_b, final_dn) contract.
+- `delta_contains` — paper SEARCHNODE set semantics on top (mark bit +
+  overflow buffer check).
+
+The JAX package's execution-mode knobs (interpret resolution, the
+``REPRO_PALLAS_*`` variables, the TPU VMEM budget and 128-lane padding) were
+derived for a TPU and have no counterpart here: the arena is read in place
+on the card and no batch padding is needed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.veb_search import (
+    pos_table, veb_walk_fused, veb_walk_rows, walk_big,
+)
+from repro_torch.obs import trace as TR
+
+
+def walk_round_cap(height: int, max_dnodes: int) -> int:
+    """Walk round bound derived from the arena geometry.
+
+    An arena of M ΔNodes holds at most ``M * 2**(height-1)`` leaves, so a
+    *balanced* ΔNode tree is ``ceil(log2(M * leaf_cap) / (height-1))``
+    ΔNodes deep; maintenance keeps the tree within a constant factor of
+    that, and the cap doubles the balanced depth and adds slack for
+    overflow-chase hops mid-maintenance.
+    """
+    leaf_cap = 2 ** (height - 1)
+    balanced = math.ceil(
+        math.log2(max(max_dnodes, 2) * leaf_cap) / max(height - 1, 1))
+    return 2 * balanced + 8
+
+
+def _roots(root, k: int, device) -> torch.Tensor:
+    root = torch.as_tensor(root, dtype=torch.int32, device=device)
+    return root.expand(k).contiguous()
+
+
+def delta_walk(value: torch.Tensor, child: torch.Tensor, root,
+               queries: torch.Tensor, *, height: int,
+               max_rounds: int | None = None, fused: bool = True):
+    """Multi-hop ΔTree walk in lockstep rounds over the query frontier.
+
+    value/child are the arena arrays (value int32, or int64 packed map
+    mode); ``queries`` are *packed* values (`TreeConfig.qpack`), cast to the
+    value dtype.  ``root`` is a scalar (single-arena walk) or a per-query
+    (K,) int32 tensor of seeds.  A query equal to ``walk_big(dtype)`` (the
+    reserved ROUTE_LEFT key, packed) is born resolved — hops 0, miss leaf,
+    no successor candidate.  ``max_rounds=None`` derives the round cap from
+    the arena geometry (`walk_round_cap`).
+
+    Returns per query:
+      leaf_val: packed value at the final position (EMPTY on miss)
+      leaf_b:   final BFS position in the final ΔNode
+      final_dn: final ΔNode id
+      hops:     rounds the query stayed active = ΔNodes visited — exactly
+                the scalar engine's `_descend` transfer statistic
+      cand:     min left-turn router over the whole walk (successor lower
+                bound; ``walk_big(dtype)`` when no left turn happened)
+    """
+    TR.bump("delta_walk.dispatch")
+    if max_rounds is None:
+        max_rounds = walk_round_cap(height, value.shape[0])
+    queries = queries.to(value.dtype).contiguous()
+    roots = _roots(root, queries.shape[0], value.device)
+    with TR.annotate("delta_walk"):
+        if fused:
+            return veb_walk_fused(value, child, roots, queries,
+                                  height=height, max_rounds=int(max_rounds))
+        return _delta_walk(value, child, roots, queries, height=height,
+                           max_rounds=int(max_rounds))
+
+
+def _delta_walk(value, child, roots, queries, *, height, max_rounds):
+    """Per-round walk: gather each lane's current ΔNode row and child
+    row, descend it with one `veb_walk_rows` launch, hop, repeat until every
+    lane is resolved (one host check per round)."""
+    k = queries.shape[0]
+    dev = value.device
+    big = walk_big(value.dtype)
+    dn = roots.clone()
+    resolved = queries == big
+    leaf_val = torch.zeros(k, dtype=value.dtype, device=dev)
+    leaf_b = torch.ones(k, dtype=torch.int32, device=dev)
+    final_dn = dn.clone()
+    hops = torch.zeros(k, dtype=torch.int32, device=dev)
+    cand = torch.full((k,), big, dtype=value.dtype, device=dev)
+    rounds = 0
+    while rounds < max_rounds and not bool(resolved.all()):
+        with TR.annotate("delta_walk.round"):
+            dnc = dn.clamp(0, value.shape[0] - 1).long()
+            lv, lb, nxt, rcand = veb_walk_rows(
+                value[dnc], child[dnc], queries, height=height)
+        act = ~resolved
+        done_now = act & (nxt < 0)
+        final_dn = torch.where(done_now, dn, final_dn)
+        dn = torch.where(act & (nxt >= 0), nxt, dn)
+        resolved = resolved | done_now
+        leaf_val = torch.where(done_now, lv, leaf_val)
+        leaf_b = torch.where(done_now, lb, leaf_b)
+        hops = hops + act.to(torch.int32)
+        cand = torch.where(act & (rcand < cand), rcand, cand)
+        rounds += 1
+    return leaf_val, leaf_b, final_dn, hops, cand
+
+
+def delta_search(value: torch.Tensor, child: torch.Tensor, root,
+                 queries: torch.Tensor, *, height: int,
+                 max_rounds: int | None = None, fused: bool = True):
+    """(leaf_val, leaf_b, final_dn) per query — `delta_walk` without the
+    hop and candidate columns."""
+    lv, lb, dn, _, _ = delta_walk(value, child, root, queries, height=height,
+                                  max_rounds=max_rounds, fused=fused)
+    return lv, lb, dn
+
+
+def delta_contains(value: torch.Tensor, mark: torch.Tensor,
+                   child: torch.Tensor, buf: torch.Tensor, root,
+                   queries: torch.Tensor, *, height: int,
+                   max_rounds: int | None = None, fused: bool = True):
+    """Paper SEARCHNODE on top of the kernel walk: leaf match & ~mark, else
+    the ΔNode's overflow buffer (paper Fig. 8 lines 9..17)."""
+    pos = pos_table(height, value.device).long()
+    queries = queries.to(value.dtype)
+    lv, lb, dn = delta_search(value, child, root, queries, height=height,
+                              max_rounds=max_rounds, fused=fused)
+    dn = dn.long()
+    leaf_hit = lv == queries
+    leaf_live = leaf_hit & ~mark[dn, pos[lb.long()]]
+    in_buf = (buf[dn] == queries[:, None]).any(dim=1)
+    return torch.where(leaf_hit, leaf_live, in_buf)

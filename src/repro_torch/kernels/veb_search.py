@@ -1,0 +1,174 @@
+"""The vEB walk kernels: CUDA for tensors on the card, plain PyTorch on the CPU.
+
+Port of ``repro.kernels.veb_search`` (Pallas on a TPU).  The kernels live in
+``csrc/veb_walk.cu`` and are built at first use (`kernels.build`); the
+wrappers here check their inputs, allocate the outputs and launch on the
+current stream.  A tensor on the CPU goes to the plain version in
+`kernels.ref`; a CUDA tensor goes to the kernel, and a launch the card
+refuses raises — there is no fallback from one to the other.
+
+Rows may be int32 (set mode) or int64 (map mode: ``key << bits | payload``
+packed values; ordering by packed value equals ordering by key, so the walk
+is unchanged).  Unlike the TPU kernels nothing is padded: the arena is read
+in place, and any batch size is accepted.
+
+Each wrapper counts its kernel launches in a plain integer attribute
+(``launches``), incremented only where the kernel is launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import pos_table, walk_big  # noqa: F401
+
+MAX_HEIGHT = 12  # kMaxHeight in csrc/veb_walk.cu
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_FUSED_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    if dtype == torch.int32:
+        return "i32"
+    if dtype == torch.int64:
+        return "i64"
+    raise TypeError(f"walk kernels take int32 or int64 rows, got {dtype}")
+
+
+def _kernel_fn(name: str, argtypes):
+    from repro_torch.kernels.build import library
+
+    fn = getattr(library("veb_walk.cu"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
+    for arg, x in tensors.items():
+        if x.device != dev:
+            raise ValueError(f"{name}: {arg} is on {x.device}, expected {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def _check_height(height: int) -> None:
+    if not 1 <= height <= MAX_HEIGHT:
+        raise ValueError(f"height must be in 1..{MAX_HEIGHT}, got {height}")
+
+
+def veb_walk_rows(rows: torch.Tensor, childrows: torch.Tensor,
+                  queries: torch.Tensor, *, height: int):
+    """One full in-ΔNode descent per query.
+
+    rows:      (K, UBp) int32/int64 — each query's current ΔNode row (vEB
+               order; UBp >= 2**height - 1)
+    childrows: (K, CP)  int32 — matching bottom-slot child ids (-1 none)
+    queries:   (K,)     packed, same dtype as rows
+
+    Returns (leaf_val, leaf_b, next_dn, cand): leaf_val/cand in the row
+    dtype, leaf_b/next_dn int32, each (K,).  next_dn = -1 when the walk ends
+    inside this ΔNode; cand = min left-turn router (``walk_big`` when no
+    left turn happened).
+    """
+    _check_height(height)
+    if queries.dtype != rows.dtype:
+        raise TypeError(f"queries {queries.dtype} != rows {rows.dtype}")
+    if rows.device.type == "cpu":
+        return ref.ref_veb_walk_rows(rows, childrows, queries, height=height)
+    if rows.device.type != "cuda":
+        raise ValueError(f"veb_walk_rows: unsupported device {rows.device}")
+    k, ubp = rows.shape
+    cp = childrows.shape[1]
+    if childrows.dtype != torch.int32 or childrows.shape[0] != k:
+        raise ValueError("veb_walk_rows: childrows must be (K, CP) int32")
+    if queries.shape != (k,) or ubp < 2 ** height - 1 or cp < 2 ** (height - 1):
+        raise ValueError("veb_walk_rows: shapes do not fit the height")
+    dev = rows.device
+    pos = pos_table(height, dev)
+    _check_cuda("veb_walk_rows", dev, rows=rows, childrows=childrows,
+                queries=queries, pos=pos)
+    leaf_val = torch.empty(k, dtype=rows.dtype, device=dev)
+    leaf_b = torch.empty(k, dtype=torch.int32, device=dev)
+    next_dn = torch.empty(k, dtype=torch.int32, device=dev)
+    cand = torch.empty(k, dtype=rows.dtype, device=dev)
+    fn = _kernel_fn(f"veb_walk_rows_{_suffix(rows.dtype)}", _ROWS_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(rows.data_ptr(), childrows.data_ptr(), queries.data_ptr(),
+                 pos.data_ptr(), k, ubp, cp, height, leaf_val.data_ptr(),
+                 leaf_b.data_ptr(), next_dn.data_ptr(), cand.data_ptr(),
+                 stream)
+    veb_walk_rows.launches += 1
+    _raise_on("veb_walk_rows", err)
+    return leaf_val, leaf_b, next_dn, cand
+
+
+veb_walk_rows.launches = 0
+
+
+def veb_walk_fused(value: torch.Tensor, child: torch.Tensor,
+                   roots: torch.Tensor, queries: torch.Tensor, *,
+                   height: int, max_rounds: int):
+    """All walk rounds in one launch.
+
+    value:   (M, UB) arena rows, int32/int64 (read in place)
+    child:   (M, leaf_cap) int32 bottom-slot child ids (-1 none)
+    roots:   (K,) int32 per-query frontier seeds
+    queries: (K,) packed, same dtype as value
+
+    Returns the `ops.delta_walk` 5-tuple (leaf_val, leaf_b, final_dn, hops,
+    cand), each (K,).  Sentinel queries (``walk_big``) are born resolved;
+    a lane stops after ``max_rounds`` rounds whether or not it resolved.
+    """
+    _check_height(height)
+    if queries.dtype != value.dtype:
+        raise TypeError(f"queries {queries.dtype} != value {value.dtype}")
+    if value.device.type == "cpu":
+        return ref.ref_delta_walk_fused(value, child, roots, queries,
+                                        height=height, max_rounds=max_rounds)
+    if value.device.type != "cuda":
+        raise ValueError(f"veb_walk_fused: unsupported device {value.device}")
+    m, ub = value.shape
+    lc = child.shape[1]
+    k = queries.shape[0]
+    if ub != 2 ** height - 1 or lc != 2 ** (height - 1) or child.shape[0] != m:
+        raise ValueError("veb_walk_fused: arena shapes do not fit the height")
+    if child.dtype != torch.int32 or roots.dtype != torch.int32:
+        raise ValueError("veb_walk_fused: child and roots must be int32")
+    if roots.shape != (k,) or queries.shape != (k,):
+        raise ValueError("veb_walk_fused: roots and queries must be (K,)")
+    dev = value.device
+    pos = pos_table(height, dev)
+    _check_cuda("veb_walk_fused", dev, value=value, child=child, roots=roots,
+                queries=queries, pos=pos)
+    leaf_val = torch.empty(k, dtype=value.dtype, device=dev)
+    leaf_b = torch.empty(k, dtype=torch.int32, device=dev)
+    final_dn = torch.empty(k, dtype=torch.int32, device=dev)
+    hops = torch.empty(k, dtype=torch.int32, device=dev)
+    cand = torch.empty(k, dtype=value.dtype, device=dev)
+    fn = _kernel_fn(f"veb_walk_fused_{_suffix(value.dtype)}", _FUSED_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(value.data_ptr(), child.data_ptr(), roots.data_ptr(),
+                 queries.data_ptr(), pos.data_ptr(), k, m, ub, lc, height,
+                 int(max_rounds), leaf_val.data_ptr(), leaf_b.data_ptr(),
+                 final_dn.data_ptr(), hops.data_ptr(), cand.data_ptr(),
+                 stream)
+    veb_walk_fused.launches += 1
+    _raise_on("veb_walk_fused", err)
+    return leaf_val, leaf_b, final_dn, hops, cand
+
+
+veb_walk_fused.launches = 0

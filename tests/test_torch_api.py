@@ -1,0 +1,109 @@
+"""PyTorch port: the Index API — a random op trace through the port's
+``make_index("deltatree", engine="lockstep", device="cpu")`` equals the
+JAX package's ``make_index`` and the oracle; what the port does not run yet
+raises; with no card and no explicit device the entry points raise."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.api import OpBatch as JOpBatch
+from repro.api import make_index as jmake_index
+from repro.core.oracle import SetOracle
+from repro_torch.api import CapabilityError, OpBatch, make_index
+from repro_torch.core import deltatree as TDT
+
+from _torch_parity import assert_trees_equal
+
+
+@pytest.mark.parametrize("engine", ["lockstep", "scalar"])
+def test_op_trace_equals_jax_and_oracle(engine):
+    rng = np.random.default_rng(17)
+    init = np.unique(rng.integers(1, 5000, 400)).astype(np.int32)
+    kw = dict(height=4, max_dnodes=512, buf_cap=8, engine=engine)
+    jix = jmake_index("deltatree", initial=init, **kw)
+    tix = make_index("deltatree", initial=init, device="cpu", **kw)
+    oracle = SetOracle(init)
+    for step in range(5):
+        kinds = rng.choice([0, 0, 1, 2], 128).astype(np.int32)
+        keys = rng.integers(1, 5200, 128).astype(np.int32)
+        tf, th = tix.search(keys)
+        jf, jh = jix.search(jnp.asarray(keys))
+        np.testing.assert_array_equal(tf.numpy(), oracle.snapshot_search(keys))
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+        tix, tres = tix.insert_delete(OpBatch.mixed(kinds, keys))
+        jix, jres = jix.insert_delete(JOpBatch.mixed(kinds, keys))
+        np.testing.assert_array_equal(tres.numpy(),
+                                      oracle.apply_updates(kinds, keys))
+        np.testing.assert_array_equal(tres.numpy(), np.asarray(jres))
+        assert_trees_equal(jix.state, tix.state, f"step {step}")
+    q = rng.integers(0, 5300, 64).astype(np.int32)
+    tsf, tsk = tix.successor(q)
+    jsf, jsk = jix.successor(jnp.asarray(q))
+    np.testing.assert_array_equal(tsf.numpy(), np.asarray(jsf))
+    np.testing.assert_array_equal(tsk.numpy(), np.asarray(jsk))
+    live = oracle.keys()
+    for k, f, s in zip(q, tsf.numpy(), tsk.numpy()):
+        nxt = live[live > k]
+        assert f == (nxt.size > 0) and (not f or s == nxt[0])
+    assert tix.size() == jix.size() == len(oracle.s)
+    assert tix.live_items() == jix.live_items()
+    assert not tix.alloc_failed()
+    tix, stats = tix.flush()
+    assert stats.rounds == 0
+
+
+def test_map_mode_lookup_and_capability():
+    vals = np.arange(10, 400, 3, dtype=np.int32)
+    ix = make_index("deltatree", initial=vals, payloads=vals * 2,
+                    payload_bits=12, height=4, max_dnodes=128,
+                    engine="lockstep", device="cpu")
+    found, pay, _ = ix.lookup([10, 11, 13])
+    assert found.tolist() == [True, False, True]
+    assert pay.tolist() == [20, -1, 26]
+    cap = ix.capability
+    assert cap.map_mode and cap.successor
+    assert not (cap.range_scan or cap.successor_k or cap.deferred_maintenance)
+    with pytest.raises(CapabilityError):
+        make_index("deltatree", initial=vals, height=4, max_dnodes=128,
+                   device="cpu").lookup([10])
+
+
+def test_entry_points_need_a_card_or_cpu(monkeypatch):
+    """With no card, entry points without ``device="cpu"`` raise instead of
+    running on the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TDT.TreeConfig(height=4, max_dnodes=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_index("deltatree", initial=[1, 2, 3], height=4, max_dnodes=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TDT.bulk_build(cfg, [1, 2, 3])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TDT.empty(cfg)
+    assert make_index("deltatree", height=4, max_dnodes=64,
+                      device="cpu").size() == 0
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(maintenance="deferred"), NotImplementedError),
+    (dict(maintenance="budgeted:4"), NotImplementedError),
+    (dict(engine="auto"), NotImplementedError),
+    (dict(collect_stats=True), NotImplementedError),
+    (dict(maintenance="lazy"), ValueError),
+    (dict(engine="nope"), ValueError),
+])
+def test_unported_options_raise(kw, exc):
+    with pytest.raises(exc):
+        make_index("deltatree", initial=[1, 2, 3], height=4, max_dnodes=64,
+                   device="cpu", **kw)
+
+
+def test_scheduler_rejects_non_eager_policy():
+    from repro_torch.maintenance.scheduler import run_update
+
+    cfg = TDT.TreeConfig(height=4, max_dnodes=64, maintenance="deferred")
+    t = TDT.empty(TDT.TreeConfig(height=4, max_dnodes=64), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        run_update(cfg, t, [1], [5])
