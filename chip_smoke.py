@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Card check: require CUDA, print the card's name and power limit
    (``nvidia-smi``), build and load the kernels from
-   ``src/repro_torch/kernels/csrc`` and print the build seconds.
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
+   together) and print the build seconds.
 2. Each walk kernel against its plain PyTorch version, on the card, in set
    mode (int32) and map mode (int64, ``payload_bits=12``), over a tree of
    the Fig. 12 size after a few update batches and 2**16 queries (present
@@ -21,6 +22,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    needs (every distinct router slot and child id it reads, queries, roots,
    outputs) over the card's 3.35 TB/s.  The walks do a few integer compares
    per loaded router, so bytes bound them.
+   ``veb_scan_fused`` against its plain version on the same trees, over
+   2**12 lanes that mix sparse, dense, empty (hi <= start) and
+   past-the-last-key bands, bands that start just below tombstoned keys,
+   sentinel lanes and per-lane roots at non-root ΔNodes, at ``max_out`` 16
+   and 128 and with a round cap that truncates lanes: all four outputs must
+   be equal exactly.  Then timed at K = 512 (``benchmarks/scan_sweep.py
+   --full``'s batch) for sparse / dense bands x ``max_out`` 16 / 128, beside
+   the plain version, the bytes bound (distinct router, child-id and mark
+   bytes the scan reads, inputs and outputs, over 3.35 TB/s) and a yardstick
+   (``torch.searchsorted`` over the sorted live keys plus a ``max_out``-wide
+   gather: the same rows on a tree without tombstones; the port never calls
+   it).
 3. The main path at the size of the paper's Fig. 12 big tree
    (``benchmarks/fig12_big_tree.py`` with ``benchmarks/common.py``
    ``backend_kwargs``): ``make_index("deltatree", engine="lockstep")`` over
@@ -29,9 +42,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``ix.insert_delete`` on the whole batch — each checked against the set
    oracle, one 1024-key ``ix.successor`` batch, and the final live set and
    ``alloc_fail``.  Then 3 steps with ``walk_fused=False``, so the
-   per-round walk runs ``veb_walk_rows``.  Each of the two runs sets the
-   launch counters to 0 just before it and reads them just after: its walk
-   kernel must have launched, and no plain version may have run.
+   per-round walk runs ``veb_walk_rows``.  Range scans on the eager fused
+   index after its steps: one K = 512 ``scan`` batch per (density,
+   ``max_out``) cell above, one 1024-key ``ix.successor_k(keys, 16)`` batch
+   and three ``ix.range_scan`` paginations followed by cursor to the end,
+   each checked against the sorted oracle keys.
+4. Deferred maintenance at the same size: ``make_index(...,
+   maintenance="deferred")`` on the same keys, one batch of 1024 inserts in
+   runs of consecutive keys (which fills overflow buffers; the uniform
+   Fig. 12 mix alone almost never does), then 10 steps of 1024 ops at 10 %
+   updates, each step's search, update results, one K = 512 scan batch and
+   one successor batch checked against the oracle; every step must carry
+   buffered items (``stats.pending > 0``), so the scans merged them.  Then
+   ``flush()`` and the live set.  The same for 3 steps under
+   ``budgeted:8``.
+Each run of a path (fused steps, per-round steps, scans, deferred,
+budgeted) sets the launch counters to 0 just before it and reads them just
+after: its kernels must have launched, and no plain version may have run.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -59,7 +86,16 @@ UPDATE_PCT = 10
 STEPS = 20                 # fused main-path steps
 PER_ROUND_STEPS = 3        # main-path steps with walk_fused=False
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-SOURCE = "src/repro_torch/kernels/csrc/veb_walk.cu"
+SCAN_K = 512               # benchmarks/scan_sweep.py --full batch
+SCAN_CHECK_K = 2 ** 12     # lanes for the scan kernel-vs-plain comparison
+SCAN_MAX_OUT = (16, 128)   # scan_sweep.py --full k_list
+DENSITY_FILL = {"sparse": 0.25, "dense": 4.0}   # scan_sweep.py
+TRUNCATING_ROUNDS = 300    # a scan round cap below a dense lane's need
+DEFERRED_STEPS = 10
+BUDGETED_STEPS = 3
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCE = f"{CSRC}/veb_walk.cu"
+SCAN_SOURCE = f"{CSRC}/veb_scan.cu"
 
 
 class SmokeError(RuntimeError):
@@ -192,8 +228,172 @@ def rows_needs(rows, height: int, q) -> int:
             + k * (2 * isz + 2 * 4) + pos.numel() * 4)
 
 
+def scan_needs(t, height: int, roots, starts, his, max_out: int,
+               pmask: int, max_rounds: int):
+    """Bytes the scan kernel needs on these inputs: every distinct router
+    slot, child id and mark its lanes read, each once, plus roots, bounds,
+    outputs and the position table.  A replay of the FIND / VERIFY passes
+    of `ref_delta_scan_fused` that records addresses; returns (bytes, the
+    replay's per-lane emitted counts), the counts for a consistency check."""
+    import torch
+
+    from repro_torch.kernels.ref import pos_table, walk_big
+
+    pos = pos_table(height, starts.device).long()
+    m, ub = t.value.shape
+    lc = t.child.shape[1]
+    bottom0 = 2 ** (height - 1)
+    big = walk_big(t.value.dtype)
+    vflat, mflat, cflat = (t.value.reshape(-1), t.mark.reshape(-1),
+                           t.child.reshape(-1))
+    dn0 = roots.long()
+    dn = dn0.clone()
+    verify = torch.zeros_like(starts, dtype=torch.bool)
+    q, cursor = starts.clone(), starts.clone()
+    cand = torch.full_like(starts, big)
+    n = torch.zeros_like(starts, dtype=torch.int32)
+    done = starts == big
+    vidx, cidx, midx = [], [], []
+    for _ in range(max_rounds):
+        if bool(done.all()):
+            break
+        ln = (~done).nonzero()[:, 0]
+        d = dn[ln].clamp(0, m - 1)
+        v, ver, cur, c = q[ln], verify[ln], cursor[ln], cand[ln]
+        b = torch.ones_like(d)
+        lb = torch.ones_like(d)
+        lv = torch.zeros_like(v)
+        routers, bs = [], []
+        for _ in range(height):
+            addr = d * ub + pos[b]
+            vidx.append(addr)
+            router = vflat[addr]
+            routers.append(router)
+            bs.append(b)
+            lb = torch.where(router != 0, b, lb)
+            lv = torch.where(router != 0, router, lv)
+            b = torch.where(b < bottom0, 2 * b + (v >= router).long(), b)
+        rcand = torch.full_like(v, big)
+        for router, bi in zip(routers, bs):
+            fold = (router != 0) & (bi != lb) & (v < router) & (router < rcand)
+            rcand = torch.where(fold, router, rcand)
+        bottom = lb >= bottom0
+        caddr = d * lc + (lb - bottom0).clamp(min=0)
+        cidx.append(caddr[bottom])
+        nxt = torch.where(bottom, cflat[caddr].long(), -1)
+        c = torch.where(~ver & (rcand < c), rcand, c)
+        res = nxt < 0
+        maddr = d * ub + pos[lb]
+        midx.append(maddr[res])
+        live = (lv != 0) & ~mflat[maddr]
+        f_res = res & ~ver
+        c = torch.where(f_res & live & (lv > cur) & (lv < c), lv, c)
+        f_none = f_res & ((c == big) | (c > his[ln]))
+        to_v = f_res & ~f_none
+        v_res = res & ver
+        hit = v_res & live & ((lv | pmask) == v)
+        emit = hit & (n[ln] < max_out)
+        full = hit & ~emit
+        back = emit | (v_res & ~hit)
+        restart = to_v | back
+        dn[ln] = torch.where(nxt >= 0, nxt, torch.where(restart, dn0[ln],
+                                                         dn[ln]))
+        cursor[ln] = torch.where(back, v, cur)
+        q[ln] = torch.where(to_v, c | pmask, v)
+        verify[ln] = (ver | to_v) & ~back
+        cand[ln] = torch.where(restart, big, c)
+        n[ln] += emit.to(torch.int32)
+        done[ln] = f_none | full
+    isz = t.value.element_size()
+    k = starts.numel()
+
+    def distinct(idx):
+        return torch.unique(torch.cat(idx)).numel() if idx else 0
+
+    nbytes = (distinct(vidx) * isz + distinct(cidx) * 4 + distinct(midx)
+              + k * (4 + 2 * isz) + k * max_out * isz + k * (4 + 4 + 1)
+              + pos.numel() * 4)
+    return nbytes, n
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def scan_bands(rng, n_keys: int, k: int, density: str, max_out: int):
+    """benchmarks/scan_sweep.py::_scan_row's windows: ``k`` lanes whose
+    band holds ~``DENSITY_FILL[density] * max_out`` live keys; returns
+    (exclusive starts, inclusive his) as int32 numpy arrays."""
+    import numpy as np
+
+    width = max(1, int(KEY_MAX / n_keys * DENSITY_FILL[density] * max_out))
+    lo = rng.integers(1, max(2, KEY_MAX - width), k)
+    return ((lo - 1).astype(np.int32),
+            np.minimum(lo + width, KEY_MAX).astype(np.int32))
+
+
+def pack_bands(cfg, starts, his, device):
+    """Packed kernel bounds; the reserved ROUTE_LEFT start becomes the
+    sentinel (`engine._walk_queries`)."""
+    import torch
+
+    from repro_torch.core.layout import ROUTE_LEFT
+    from repro_torch.kernels.veb_search import walk_big
+
+    st = torch.as_tensor(starts, device=device)
+    sp = cfg.qpack(st)
+    sp[st == int(ROUTE_LEFT)] = walk_big(cfg.vdtype)
+    return sp.contiguous(), cfg.qpack(torch.as_tensor(his, device=device))
+
+
+def check_lanes(cfg, t, n_keys: int, rng, device):
+    """``SCAN_CHECK_K`` lanes for the scan comparison: sparse and dense
+    bands, empty bands (hi <= start), bands past the last key, bands that
+    start just below a tombstoned key, sentinel lanes, and per-lane roots
+    at live non-root ΔNodes for 1 lane in 8.  Returns (starts, his, roots,
+    number of tombstones seen)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.layout import ROUTE_LEFT
+
+    k = SCAN_CHECK_K
+    kind = rng.choice(6, k, p=[0.3, 0.3, 0.08, 0.08, 0.2, 0.04])
+    st, hi = scan_bands(rng, n_keys, k, "sparse", 16)
+    dst, dhi = scan_bands(rng, n_keys, k, "dense", 128)
+    st = np.where(kind == 1, dst, st)
+    hi = np.where(kind == 1, dhi, hi)
+    hi = np.where(kind == 2, st - rng.integers(0, 100, k), hi)
+    past = KEY_MAX + rng.integers(0, 1000, k)
+    st = np.where(kind == 3, past, st)
+    hi = np.where(kind == 3, past + 10_000, hi)
+    tomb = cfg.key_of(t.value[t.mark & t.alive[:, None]]).cpu().numpy()
+    if tomb.size:
+        at = rng.choice(tomb, k)
+        st = np.where(kind == 4, at - rng.integers(1, 4, k), st)
+        hi = np.where(kind == 4, at + rng.integers(1, 400, k), hi)
+    st = np.where(kind == 5, int(ROUTE_LEFT), st).astype(np.int32)
+    hi = hi.astype(np.int32)
+    alive = torch.nonzero(t.alive)[:, 0].to(torch.int32)
+    roots = t.root.expand(k).clone()
+    pick = torch.as_tensor(rng.random(k) < 1 / 8, device=device)
+    idx = torch.as_tensor(rng.integers(0, alive.numel(), k), device=device)
+    roots = torch.where(pick, alive[idx], roots).contiguous()
+    return st, hi, roots, int(tomb.size)
+
+
+def oracle_scan(live, starts, his, max_out: int):
+    """The sorted-oracle answer to a scan batch: (keys (K, max_out) int32
+    zero-padded past n, n, more) for bands (start, hi]."""
+    import numpy as np
+
+    lo = np.searchsorted(live, starts, side="right")
+    cnt = np.maximum(np.searchsorted(live, his, side="right") - lo, 0)
+    n = np.minimum(cnt, max_out)
+    j = np.arange(max_out)[None, :]
+    idx = np.minimum(lo[:, None] + j, max(live.size - 1, 0))
+    keys = np.where(j < n[:, None], live[idx] if live.size else 0, 0)
+    return keys.astype(np.int32), n.astype(np.int32), cnt > max_out
 
 
 # --------------------------------------------------------------------------
@@ -210,11 +410,15 @@ def card_check() -> tuple[str, str]:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels.build import library
 
+    sources = [Path(SOURCE).name, Path(SCAN_SOURCE).name]
     t0 = time.perf_counter()
-    library(Path(SOURCE).name)
-    log(f"kernels of {SOURCE} built and loaded in "
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(library, sources))
+    log(f"kernels of {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     return card, torch.cuda.get_device_name(0)
 
@@ -288,15 +492,97 @@ def check_rows_rounds(t, roots, q, height: int, max_rounds: int, where: str):
     return rounds, err, first
 
 
+def compare_scan(cfg, t, n_keys: int, sorted_keys, rng, device, flush,
+                 mode: str) -> dict:
+    """Phase 2 for `veb_scan_fused` on one churned tree: the comparison
+    over `check_lanes`, then the timed K = 512 cells.  Returns the largest
+    difference and the timed rows."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import veb_search as VS
+    from repro_torch.kernels.ops import scan_round_cap
+
+    h = cfg.height
+    st, hi, roots, n_tomb = check_lanes(cfg, t, n_keys, rng, device)
+    sp, hp = pack_bands(cfg, st, hi, device)
+    err = 0
+    for max_out, cap in ((16, None), (128, None), (128, TRUNCATING_ROUNDS)):
+        cap = cap or scan_round_cap(h, cfg.max_dnodes, max_out)
+        args = (t.value, t.mark, t.child, roots, sp, hp)
+        kw = dict(height=h, max_out=max_out, pmask=cfg.pmask, max_rounds=cap)
+        got = VS.veb_scan_fused(*args, **kw)
+        want = ref.ref_delta_scan_fused(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, *(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(got, want)))
+        check(err == 0, f"veb_scan_fused != plain ({mode}, max_out "
+                        f"{max_out}, cap {cap})")
+        log(f"{mode}: veb_scan_fused equals its plain version on "
+            f"{SCAN_CHECK_K} lanes, max_out {max_out}, cap {cap}: emitted "
+            f"{int(got[1].sum())}, rows full {int(got[3].sum())}, lanes at "
+            f"the cap {int((got[2] == cap).sum())}, max hops "
+            f"{int(got[2].max())}, {n_tomb} tombstones in the tree")
+    rows = []
+    for density in DENSITY_FILL:
+        for max_out in SCAN_MAX_OUT:
+            st, hi = scan_bands(rng, n_keys, SCAN_K, density, max_out)
+            sp, hp = pack_bands(cfg, st, hi, device)
+            roots = t.root.expand(SCAN_K).contiguous()
+            cap = scan_round_cap(h, cfg.max_dnodes, max_out)
+            args = (t.value, t.mark, t.child, roots, sp, hp)
+            kw = dict(height=h, max_out=max_out, pmask=cfg.pmask,
+                      max_rounds=cap)
+
+            def kern():
+                return VS.veb_scan_fused(*args, **kw)
+
+            def plain():
+                return ref.ref_delta_scan_fused(*args, **kw)
+
+            stk = torch.as_tensor(st, device=device)
+            hik = torch.as_tensor(hi, device=device)
+            span = torch.arange(max_out, device=device)
+
+            def yardstick():
+                i = torch.searchsorted(sorted_keys, stk, right=True)
+                w = (i[:, None] + span).clamp(max=sorted_keys.numel() - 1)
+                r = sorted_keys[w]
+                return torch.where(r <= hik[:, None], r, 0)
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            e = max(int((a.long() - b.long()).abs().max())
+                    for a, b in zip(got, want))
+            err = max(err, e)
+            check(e == 0, f"veb_scan_fused != plain ({mode}, {density}, "
+                          f"max_out {max_out}, K={SCAN_K})")
+            nbytes, n_replay = scan_needs(t, h, roots, sp, hp, max_out,
+                                          cfg.pmask, cap)
+            check(torch.equal(n_replay, got[1]), "scan byte replay diverged")
+            r = dict(mode=mode, density=density, max_out=max_out, K=SCAN_K,
+                     ms=cuda_ms(kern, 10, flush),
+                     plain_ms=cuda_ms(plain, 2, flush), bytes=nbytes,
+                     bound_ms=bound_ms(nbytes), err=e,
+                     searchsorted_ms=cuda_ms(yardstick, 10, flush),
+                     emitted=int(got[1].sum()), rows_full=int(got[3].sum()),
+                     mean_hops=float(got[2].float().mean()))
+            log(json.dumps({"table": "veb_scan_fused", **r}))
+            rows.append(r)
+    return dict(err=err, rows=rows)
+
+
 def compare_kernels(keys, rng, device, flush) -> dict:
-    """Phase 2.  Returns per-kernel rows for the result line (timed at the
-    main path's batch of 1024) and prints the wider timing table."""
+    """Phase 2.  Returns per-kernel rows for the result line (walks timed
+    at the main path's batch of 1024, the scan at K = 512) and prints the
+    wider timing tables."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import veb_search as VS
 
     rows = {}
+    scan = []
     sorted_keys = None
     for bits in (0, 12):
         mode = "map int64" if bits else "set int32"
@@ -358,8 +644,16 @@ def compare_kernels(keys, rng, device, flush) -> dict:
                                 "K": k, **r}))
                 if k == BATCH and bits == 0:
                     rows[name] = r
+        scan.append(compare_scan(cfg, t, keys.size, sorted_keys, rng, device,
+                                 flush, mode))
         del t
         torch.cuda.empty_cache()
+    # the result line carries the set-mode dense max_out=128 cell (the
+    # default page of Index.range_scan); every cell is in the log
+    cell = next(r for r in scan[0]["rows"]
+                if r["density"] == "dense" and r["max_out"] == 128)
+    rows["scan"] = dict(cell, err=max(x["err"] for x in scan),
+                        cells=[r for x in scan for r in x["rows"]])
     return rows
 
 
@@ -369,8 +663,10 @@ def reset_counts() -> None:
 
     VS.veb_walk_fused.launches = 0
     VS.veb_walk_rows.launches = 0
+    VS.veb_scan_fused.launches = 0
     ref.ref_delta_walk_fused.calls = 0
     ref.ref_veb_walk_rows.calls = 0
+    ref.ref_delta_scan_fused.calls = 0
 
 
 def read_counts() -> dict:
@@ -379,12 +675,15 @@ def read_counts() -> dict:
 
     return dict(fused=VS.veb_walk_fused.launches,
                 rows=VS.veb_walk_rows.launches,
+                scan=VS.veb_scan_fused.launches,
                 plain=ref.ref_delta_walk_fused.calls
-                + ref.ref_veb_walk_rows.calls)
+                + ref.ref_veb_walk_rows.calls
+                + ref.ref_delta_scan_fused.calls)
 
 
-def main_path(keys, rng, device, steps: int, walk_fused: bool) -> dict:
-    """Phase 3: Fig. 12's concurrency-1024 mix through the Index API."""
+def main_path(keys, rng, device, steps: int, walk_fused: bool):
+    """Phase 3: Fig. 12's concurrency-1024 mix through the Index API.
+    Returns (result row, index, oracle)."""
     import numpy as np
     import torch
 
@@ -435,12 +734,157 @@ def main_path(keys, rng, device, steps: int, walk_fused: bool) -> dict:
     check((DT.live_keys(ix.cfg, ix.state) == live).all(),
           "live keys differ from the oracle")
     check(not ix.alloc_failed(), "arena allocation failed")
-    return dict(walk_fused=walk_fused, keys=int(keys.size),
-                max_dnodes=ix.cfg.max_dnodes, arena_mb=arena / 1e6,
-                build_s=build_s, steps=steps, counts=counts,
-                search_ms=statistics.median(search_s[1:] or search_s) * 1e3,
-                update_ms=statistics.median(update_s[1:] or update_s) * 1e3,
-                mean_hops=statistics.fmean(hops), size=ix.size())
+    row = dict(walk_fused=walk_fused, keys=int(keys.size),
+               max_dnodes=ix.cfg.max_dnodes, arena_mb=arena / 1e6,
+               build_s=build_s, steps=steps, counts=counts,
+               search_ms=statistics.median(search_s[1:] or search_s) * 1e3,
+               update_ms=statistics.median(update_s[1:] or update_s) * 1e3,
+               mean_hops=statistics.fmean(hops), size=ix.size())
+    return row, ix, oracle
+
+
+def timed(fn):
+    """(fn's result, host seconds to its end on the card)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_scan(res, live, starts, his, max_out: int, where: str) -> None:
+    """A scan batch's (keys, payloads, n, hops, more) equals the sorted
+    oracle on bands (start, hi]."""
+    keys, n, more = oracle_scan(live, starts, his, max_out)
+    check((res[0].cpu().numpy() == keys).all()
+          and (res[2].cpu().numpy() == n).all()
+          and (res[4].cpu().numpy() == more).all(),
+          f"scan results differ from the oracle ({where})")
+
+
+def scan_path(ix, oracle, rng) -> dict:
+    """Phase 3, range scans on the main path's index: one K = 512 batch
+    per (density, max_out) cell, one successor_k batch, three paginated
+    range_scans.  Counters set to 0 before, read after."""
+    import numpy as np
+
+    from repro_torch.core.layout import KEY_MAX as DOMAIN_MAX
+
+    live = oracle.keys()
+    reset_counts()
+    batch_ms = {}
+    for density in DENSITY_FILL:
+        for max_out in SCAN_MAX_OUT:
+            st, hi = scan_bands(rng, live.size, SCAN_K, density, max_out)
+            res, sec = timed(lambda: ix.spec.backend.scan(
+                ix.cfg, ix.state, st, hi, max_out))
+            check_scan(res, live, st, hi, max_out, f"{density} {max_out}")
+            batch_ms[f"{density}/{max_out}"] = sec * 1e3
+    q = rng.integers(0, KEY_MAX + 1000, BATCH).astype(np.int32)
+    res, sec = timed(lambda: ix.successor_k(q, 16))
+    check_scan(res, live, q, np.full_like(q, DOMAIN_MAX), 16, "successor_k")
+    batch_ms["successor_k/16"] = sec * 1e3
+    pages, page_ms = 0, []
+    for _ in range(3):
+        width = int(KEY_MAX / live.size * 1000)
+        lo = int(rng.integers(1, KEY_MAX - width))
+        hi = lo + width
+        got, cursor = [], None
+        while True:
+            res, sec = timed(lambda: ix.range_scan(lo, hi, cursor=cursor))
+            page_ms.append(sec * 1e3)
+            got.extend(res.keys.tolist())
+            pages += 1
+            if res.cursor is None:
+                break
+            cursor = res.cursor
+        want = live[(live >= lo) & (live <= hi)]
+        check(got == want.tolist(), "range_scan pages differ from the oracle")
+    counts = read_counts()
+    check(counts["scan"] > 0, "the scan path did not launch veb_scan_fused")
+    check(counts["plain"] == 0, "the scan path ran a plain version")
+    return dict(batch_ms=batch_ms, pages=pages,
+                page_ms=statistics.median(page_ms), counts=counts)
+
+
+def relaxed_path(keys, rng, device, policy: str, steps: int) -> dict:
+    """Phase 4: the Fig. 12 mix under a relaxed maintenance policy, scans
+    and successors checked against the oracle every step, then flush.
+
+    Uniform inserts into ~1.97 M keys almost never meet in one leaf
+    position (a few hundred inserts over ~2 M gaps), so the Fig. 12 mix
+    alone leaves the overflow buffers empty.  A first batch therefore
+    inserts runs of consecutive keys after 128 live keys (time-ordered ids
+    do this): the third key of a run and later ones reach an occupied
+    bottom leaf and are buffered, and the relaxed policy carries them
+    through the steps that follow, where every scan must merge them.
+    Counters set to 0 before the batches, read after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import OpBatch, make_index
+    from repro_torch.core import deltatree as DT
+    from repro_torch.core.oracle import SetOracle
+
+    ix = make_index("deltatree", initial=keys, engine="lockstep",
+                    maintenance=policy, device=device,
+                    **fig12_config(keys.size))
+    torch.cuda.synchronize()
+    oracle = SetOracle(keys)
+    reset_counts()
+    runs = (rng.choice(keys, BATCH // 8)[:, None]
+            + np.arange(1, 9)).reshape(-1).astype(np.int32)
+    ones = np.ones(runs.size, np.int32)
+    (ix, res, stats), clustered_s = timed(lambda: ix.update(
+        OpBatch.mixed(ones, runs)))
+    check((res.cpu().numpy() == oracle.apply_updates(ones, runs)).all(),
+          f"{policy}: clustered insert results differ from the oracle")
+    update_s, scan_s, pending, merged = [], [], [stats.pending], []
+    for step in range(steps):
+        kinds = mixed_kinds(rng, BATCH, UPDATE_PCT)
+        qk = rng.integers(1, KEY_MAX, BATCH).astype(np.int32)
+        found, _ = ix.search(qk)
+        check((found.cpu().numpy() == oracle.snapshot_search(qk)).all(),
+              f"{policy}: search differs from the oracle at step {step}")
+        (ix, res, stats), sec = timed(lambda: ix.update(
+            OpBatch.mixed(kinds, qk)))
+        update_s.append(sec)
+        pending.append(stats.pending)
+        check((res.cpu().numpy() == oracle.apply_updates(kinds, qk)).all(),
+              f"{policy}: update results differ at step {step}")
+        live = oracle.keys()
+        st, hi = scan_bands(rng, live.size, SCAN_K, "dense", 128)
+        sres, sec = timed(lambda: ix.spec.backend.scan(
+            ix.cfg, ix.state, st, hi, 128))
+        scan_s.append(sec)
+        check_scan(sres, live, st, hi, 128, f"{policy} step {step}")
+        buf = ix.state.buf
+        buffered = ix.cfg.key_of(buf[buf != 0]).cpu().numpy()
+        merged.append(int(np.isin(sres[0].cpu().numpy(), buffered).sum()))
+        q = rng.integers(0, KEY_MAX + 1000, BATCH).astype(np.int32)
+        sf, sk = ix.successor(q)
+        idx = np.searchsorted(live, q, side="right")
+        want_f = idx < live.size
+        want_k = np.where(want_f, live[np.minimum(idx, live.size - 1)], 0)
+        check((sf.cpu().numpy() == want_f).all()
+              and (sk.cpu().numpy() == want_k).all(),
+              f"{policy}: successor differs from the oracle at step {step}")
+    counts = read_counts()
+    check(min(pending) > 0, f"{policy}: a step carried no buffered items")
+    check(sum(merged) > 0, f"{policy}: no scan emitted a buffered item")
+    check(counts["scan"] >= steps, f"{policy}: veb_scan_fused not launched")
+    check(counts["plain"] == 0, f"{policy}: a plain version ran")
+    (ix, fstats), flush_s = timed(ix.flush)
+    check(fstats.pending == 0, f"{policy}: flush left buffered items")
+    check((DT.live_keys(ix.cfg, ix.state) == oracle.keys()).all(),
+          f"{policy}: live keys differ from the oracle after flush")
+    check(not ix.alloc_failed(), f"{policy}: arena allocation failed")
+    return dict(policy=policy, steps=steps, pending=pending, counts=counts,
+                merged_items=merged, clustered_ms=clustered_s * 1e3,
+                update_ms=statistics.median(update_s) * 1e3,
+                scan_ms=statistics.median(scan_s) * 1e3,
+                flush_s=flush_s, flush_rounds=fstats.rounds)
 
 
 def main() -> int:
@@ -448,7 +892,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -458,47 +901,77 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     card, kind = card_check()
-    device = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
-    keys = np.unique(rng.integers(1, KEY_MAX, INITIAL).astype(np.int32))
-    log(f"Fig. 12 tree: {keys.size} keys, {fig12_config(keys.size)}")
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
-
-    kern = compare_kernels(keys, rng, device, flush)
-
-    fused_run = main_path(keys, rng, device, STEPS, walk_fused=True)
-    log(json.dumps({"main_path": fused_run}))
-    c = fused_run["counts"]
-    check(c["fused"] > 0, "the main path did not launch veb_walk_fused")
-    check(c["plain"] == 0, "the main path ran a plain walk version")
-    round_run = main_path(keys, rng, device, PER_ROUND_STEPS,
-                          walk_fused=False)
-    log(json.dumps({"main_path": round_run}))
-    c = round_run["counts"]
-    check(c["rows"] > 0, "the per-round path did not launch veb_walk_rows")
-    check(c["fused"] == 0 and c["plain"] == 0,
-          "the per-round path ran another walk")
-
-    replaces = {"fused": "src/repro/kernels/veb_search.py:228",
-                "rows": "src/repro/kernels/veb_search.py:93"}
-    launches = {"fused": fused_run["counts"]["fused"],
-                "rows": round_run["counts"]["rows"]}
-    out = []
-    for name in ("fused", "rows"):
-        r = kern[name]
-        out.append({"name": f"veb_walk_{name}", "route": "cuda",
-                    "source": SOURCE, "replaces": replaces[name],
-                    "launches": launches[name], "max_abs_err": r["err"],
-                    "exact": r["err"] == 0, "ms": r["ms"],
-                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": "bytes", "library_ms": None,
-                    "searchsorted_ms": r["searchsorted_ms"], "K": BATCH})
+    out = run_phases(args.seed, torch.device("cuda"))
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(seed: int, device) -> list:
+    """Phases 2-4 on ``device``; returns the rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(1, KEY_MAX, INITIAL).astype(np.int32))
+    log(f"Fig. 12 tree: {keys.size} keys, {fig12_config(keys.size)}")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
+
+    t_start = time.perf_counter()
+    kern = compare_kernels(keys, rng, device, flush)
+    del flush
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+
+    fused_run, ix, oracle = main_path(keys, rng, device, STEPS,
+                                      walk_fused=True)
+    log(json.dumps({"main_path": fused_run}))
+    c = fused_run["counts"]
+    check(c["fused"] > 0, "the main path did not launch veb_walk_fused")
+    check(c["plain"] == 0 and c["scan"] == 0,
+          "the main path ran a plain version or a scan")
+    scan_run = scan_path(ix, oracle, rng)
+    log(json.dumps({"scan_path": scan_run}))
+    del ix, oracle
+    round_run, ix, _ = main_path(keys, rng, device, PER_ROUND_STEPS,
+                                 walk_fused=False)
+    del ix
+    log(json.dumps({"main_path": round_run}))
+    c = round_run["counts"]
+    check(c["rows"] > 0, "the per-round path did not launch veb_walk_rows")
+    check(c["fused"] == 0 and c["plain"] == 0 and c["scan"] == 0,
+          "the per-round path ran another walk")
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    for policy, steps in (("deferred", DEFERRED_STEPS),
+                          ("budgeted:8", BUDGETED_STEPS)):
+        log(json.dumps({"relaxed_path": relaxed_path(keys, rng, device,
+                                                     policy, steps)}))
+        torch.cuda.empty_cache()
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+
+    replaces = {"fused": "src/repro/kernels/veb_search.py:228",
+                "rows": "src/repro/kernels/veb_search.py:93",
+                "scan": "src/repro/kernels/veb_search.py:397"}
+    names = {"fused": "veb_walk_fused", "rows": "veb_walk_rows",
+             "scan": "veb_scan_fused"}
+    sources = {"fused": SOURCE, "rows": SOURCE, "scan": SCAN_SOURCE}
+    launches = {"fused": fused_run["counts"]["fused"],
+                "rows": round_run["counts"]["rows"],
+                "scan": scan_run["counts"]["scan"]}
+    out = []
+    for name in ("fused", "rows", "scan"):
+        r = kern[name]
+        out.append({"name": names[name], "route": "cuda",
+                    "source": sources[name], "replaces": replaces[name],
+                    "launches": launches[name], "max_abs_err": r["err"],
+                    "exact": r["err"] == 0, "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": "bytes", "library_ms": None,
+                    "searchsorted_ms": r["searchsorted_ms"],
+                    "K": SCAN_K if name == "scan" else BATCH})
+    return out
 
 
 if __name__ == "__main__":

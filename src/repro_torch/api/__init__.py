@@ -4,6 +4,8 @@
     found, hops = ix.search(queries)
     ix, results = ix.insert_delete(OpBatch.mixed(kinds, keys))
     found, succ = ix.successor(queries)
+    page = ix.range_scan(lo, hi, max_items=128)        # ScanResult (+ cursor)
+    keys, pays, n, hops, more = ix.successor_k(queries, 16)
 
 Pass ``device="cpu"`` to run on the CPU.
 """
@@ -16,6 +18,7 @@ from repro_torch.api.index import (
     IndexSpec,
 )
 from repro_torch.api.opbatch import OP_DELETE, OP_INSERT, OP_SEARCH, OpBatch
+from repro_torch.core.scan import ScanCursor, ScanResult
 from repro_torch.api.registry import (
     available_backends,
     get_backend,
@@ -35,6 +38,8 @@ __all__ = [
     "OP_SEARCH",
     "OP_INSERT",
     "OP_DELETE",
+    "ScanCursor",
+    "ScanResult",
     "available_backends",
     "get_backend",
     "make_index",

@@ -18,7 +18,6 @@ from repro_torch.api.registry import register_backend
 from repro_torch.core import deltatree as DT
 from repro_torch.core.deltatree import TreeConfig
 from repro_torch.maintenance.policy import KINDS
-from repro_torch.maintenance.scheduler import require_eager
 
 
 def _dt_make(initial, payloads, cfg=None, device=None, **kw):
@@ -26,7 +25,6 @@ def _dt_make(initial, payloads, cfg=None, device=None, **kw):
         cfg = TreeConfig(**kw)
     elif kw:
         cfg = dataclasses.replace(cfg, **kw)
-    require_eager(cfg.maintenance)
     if cfg.collect_stats or cfg.collect_transfers:
         raise NotImplementedError(
             "collect_stats is not ported to repro_torch yet (see ROADMAP.md)")
@@ -40,9 +38,29 @@ def _dt_update(cfg, t, batch: OpBatch):
     return DT.update_batch(cfg, t, batch.kinds, batch.keys, batch.payloads)
 
 
+def _unpack_scan(cfg, out, n, hops, more):
+    """Packed engine-scan rows -> the BackendSpec scan contract: (keys,
+    payloads, n, hops, more) with (K, max_items) int32 rows zero-padded
+    past ``n`` (0 is outside the key domain, so the pad is unambiguous)."""
+    span = torch.arange(out.shape[1], dtype=torch.int32, device=out.device)
+    valid = span[None, :] < n[:, None]
+    keys = torch.where(valid, cfg.key_of(out).to(torch.int32), 0)
+    pays = torch.where(valid, cfg.payload_of(out).to(torch.int32), 0)
+    return keys, pays, n, hops, more
+
+
+def _dt_scan(cfg, t, starts, his, max_items):
+    return _unpack_scan(cfg, *DT.scan_batch(cfg, t, starts, his, max_items))
+
+
+def _dt_successor_k(cfg, t, keys, k):
+    return _unpack_scan(cfg, *DT.successor_k_batch(cfg, t, keys, k))
+
+
 def _dt_size(cfg, t) -> int:
-    # between steps every live item is a live leaf or a buffered entry
-    # (never both), so nlive + bcount over live ΔNodes is exact
+    # I5 / I5': between steps every live item is a live leaf or a buffered
+    # entry (never both — inserts dedup against the buffer), so nlive +
+    # bcount over live ΔNodes is exact under every maintenance policy
     return int(torch.where(t.alive, t.nlive + t.bcount, 0).sum())
 
 
@@ -51,15 +69,17 @@ register_backend(BackendSpec(
     make=_dt_make,
     capability=lambda cfg: Capability(
         map_mode=cfg.payload_bits > 0, successor=True, sharded=False,
-        deferred_maintenance=False, range_scan=False, successor_k=False),
+        deferred_maintenance=True, range_scan=True, successor_k=True),
     search=DT.search_batch,
     lookup=DT.lookup_batch,
     update=_dt_update,
     successor=DT.successor_batch,
+    scan=_dt_scan,
+    successor_k=_dt_successor_k,
     live_items=DT.live_items,
     size=_dt_size,
     alloc_failed=lambda cfg, t: bool(t.alloc_fail),
     flush=DT.flush,
     engines=("*",),   # reads dispatch on cfg.engine: any registered engine
-    maintenance=KINDS,  # the non-eager kinds raise NotImplementedError
+    maintenance=KINDS,
 ))

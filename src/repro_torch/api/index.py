@@ -17,9 +17,12 @@ as a snapshot of the pre-update set.  Rebind as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 from repro_torch.api.opbatch import OpBatch
+
+if TYPE_CHECKING:
+    from repro_torch.core.scan import ScanCursor, ScanResult
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +49,8 @@ class BackendSpec:
 
     Required hooks: ``make``, ``capability``, ``search``, ``update``,
     ``live_items``, ``size``.  Optional hooks may be None and are gated by
-    ``capability(cfg)``: ``lookup`` (map_mode), ``successor``.
+    ``capability(cfg)``: ``lookup`` (map_mode), ``successor``, ``scan``
+    (range_scan), ``successor_k``.
     ``alloc_failed`` (sticky arena-exhaustion flag) and ``flush`` are
     optional.  ``engines`` lists the SearchEngine names the backend's read
     path can run under (``"*"``: every engine registered in
@@ -63,6 +67,13 @@ class BackendSpec:
     size: Callable[..., int]                    # (cfg, state) -> int
     lookup: Callable[..., Any] | None = None    # (cfg, state, keys) -> (found, payload, hops)
     successor: Callable[..., Any] | None = None  # (cfg, state, keys) -> (found, succ)
+    # (cfg, state, starts[K], his[K], max_items) -> (keys (K, max_items),
+    # payloads, n, hops, more): inclusive-hi ordered pages per lane,
+    # rows zero-padded past n
+    scan: Callable[..., Any] | None = None
+    # (cfg, state, keys[K], k) -> the same 5-tuple: the k smallest keys
+    # strictly greater than each query
+    successor_k: Callable[..., Any] | None = None
     alloc_failed: Callable[..., bool] | None = None  # (cfg, state) -> bool
     flush: Callable[..., Any] | None = None     # (cfg, state) -> (state, stats)
     engines: tuple[str, ...] = ("scalar",)      # selectable read engines
@@ -139,6 +150,44 @@ class Index:
         """Smallest stored key strictly greater. Returns (found[K], succ[K])."""
         self._require("successor", self.spec.backend.successor)
         return self.spec.backend.successor(self.spec.cfg, self.state, keys)
+
+    def range_scan(self, lo: int, hi: int, *, max_items: int = 128,
+                   cursor: "ScanCursor | None" = None) -> "ScanResult":
+        """One ordered page of the live set: up to ``max_items`` (key,
+        payload) rows with ``lo <= key <= hi``, ascending, as numpy arrays.
+        When the page fills before the range is exhausted, ``result.more``
+        is True and ``result.cursor`` resumes the next page:
+        ``ix.range_scan(lo, hi, cursor=result.cursor)`` (the cursor's bounds
+        override ``lo``/``hi``).  Each page reads the *current* state —
+        updates between pages are seen from their page boundary onward."""
+        from repro_torch.core import layout
+        from repro_torch.core.scan import ScanCursor, ScanResult
+
+        self._require("range_scan", self.spec.backend.scan)
+        if cursor is not None:
+            lo, hi = cursor.last_key + 1, cursor.hi
+        hi = min(int(hi), layout.KEY_MAX)
+        ks, ps, n, _, more = self.spec.backend.scan(
+            self.spec.cfg, self.state, [max(int(lo) - 1, 0)], [hi],
+            max_items)
+        count = int(n[0])
+        truncated = bool(more[0]) and count > 0
+        keys = ks[0].cpu().numpy()[:count]
+        pays = ps[0].cpu().numpy()[:count]
+        cur = (ScanCursor(last_key=int(keys[-1]), hi=hi)
+               if truncated else None)
+        return ScanResult(keys=keys, payloads=pays, more=truncated,
+                          cursor=cur)
+
+    def successor_k(self, keys, k: int):
+        """Bulk ordered read: per query, the ``k`` smallest live keys
+        strictly greater.  Returns (keys (K, k) int32 ascending rows,
+        payloads (K, k) int32, n (K,) int32, hops (K,) int32, more (K,)
+        bool) — rows are zero-padded past ``n``; ``more`` marks queries with
+        further successors beyond the ``k`` returned."""
+        self._require("successor_k", self.spec.backend.successor_k)
+        return self.spec.backend.successor_k(
+            self.spec.cfg, self.state, keys, k)
 
     # ---- updates ----
 

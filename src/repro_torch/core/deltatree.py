@@ -66,9 +66,10 @@ class TreeConfig:
 
     In this package ``engine`` names a `repro_torch.core.engine` engine,
     ``walk_fused`` picks the fused CUDA walk (True) or the per-round one
-    (False), ``maintenance`` must be ``"eager"`` and ``collect_stats`` /
-    ``collect_transfers`` must stay False (those are later slices of the
-    port), and ``q_tile`` is unused (the CUDA kernels take any batch).
+    (False), ``maintenance`` takes any policy of `maintenance.policy`,
+    ``collect_stats`` / ``collect_transfers`` must stay False (those are
+    later slices of the port), and ``q_tile`` is unused (the CUDA kernels
+    take any batch).
     """
 
     height: int = 7
@@ -1064,3 +1065,92 @@ def successor_one(cfg: TreeConfig, t: DeltaTree, key: int,
             break
         qk = ck
     return found, ck if found else 0
+
+
+def scan_one(cfg: TreeConfig, t: DeltaTree, start: int, hi: int,
+             max_out: int, chase_slack: int = 16):
+    """Scalar reference for the emit-cursor scan: up to ``max_out`` live
+    *leaf* items with ``start < key <= hi`` in key order (a wait-free read;
+    overflow buffers are merged by the engine dispatch, where I5'
+    correctness lives).
+
+    The pass structure mirrors the lockstep scan kernel
+    (`kernels.ref.ref_delta_scan_fused`): a FIND pass (the `successor_one`
+    candidate walk, leaf fold included) alternates with a VERIFY pass (an
+    exact walk for the candidate key — candidate routers may be
+    tombstones; dead candidates are chased without emitting), at most
+    ``2 * (max_out + chase_slack)`` passes.  ``hops`` counts ΔNode visits
+    across every pass, as the lockstep scan does.
+
+    Returns (out (max_out,) packed ascending with ``cfg.route_left``
+    padding, n int32, hops int32, more bool); ``more`` means the row filled
+    with live items remaining — resume from ``key_of(out[n-1])``.
+    """
+    pos = _pos_list(cfg)
+    bottom0 = cfg.bottom0
+    big = cfg.route_left
+    pm = cfg.pmask
+    root = int(t.root)
+    hi_q = cfg.qpack(int(hi))
+
+    def walk_pass(q):
+        # one root-to-leaf walk: (candidate fold, leaf value, leaf live,
+        # ΔNodes visited)
+        dn, b, cand, hops = root, 1, big, 1
+        row = t.value[dn].tolist()
+        while True:
+            if b < bottom0 and row[pos[min(2 * b, 2 * bottom0 - 1)]] != EMPTY:
+                router = row[pos[b]]
+                if q < router < cand:              # left turn
+                    cand = router
+                b = 2 * b + int(q >= router)
+                continue
+            ch = int(t.child[dn, b - bottom0]) if b >= bottom0 else NONE
+            if ch < 0:
+                break
+            dn, b, hops = ch, 1, hops + 1
+            row = t.value[dn].tolist()
+        leaf_val = row[pos[b]]
+        leaf_live = leaf_val != EMPTY and not bool(t.mark[dn, pos[b]])
+        return cand, leaf_val, leaf_live, hops
+
+    cursor = cfg.qpack(int(start))
+    out, n, hops, more = [big] * max_out, 0, 0, False
+    for _ in range(2 * (max_out + chase_slack)):
+        cand, lv, live, h1 = walk_pass(cursor)
+        hops += h1
+        if live and cursor < lv < cand:
+            cand = lv
+        if cand == big or cand > hi_q:
+            break
+        pending = cand | pm
+        _, lv2, live2, h2 = walk_pass(pending)
+        hops += h2
+        if live2 and (lv2 | pm) == pending:
+            if n == max_out:
+                more = True
+                break
+            out[n] = lv2
+            n += 1
+        cursor = pending
+    dev = t.value.device
+    return (torch.tensor(out, dtype=cfg.vdtype, device=dev),
+            torch.tensor(n, dtype=torch.int32, device=dev),
+            torch.tensor(hops, dtype=torch.int32, device=dev),
+            torch.tensor(more, device=dev))
+
+
+def scan_batch(cfg: TreeConfig, t: DeltaTree, starts, his, max_out: int):
+    """Ordered range scans via ``cfg.engine`` (buffered items merged under
+    non-eager maintenance — see `engine.scan`)."""
+    from repro_torch.core import engine as E  # deferred: engine imports us
+
+    return E.scan(cfg, t, starts, his, max_out=max_out)
+
+
+def successor_k_batch(cfg: TreeConfig, t: DeltaTree, keys, k: int):
+    """Bulk ordered reads: the ``k`` smallest live keys strictly greater
+    than each query key — a scan with an unbounded upper band."""
+    from repro_torch.core import engine as E  # deferred: engine imports us
+
+    return E.successor_k(cfg, t, keys, k)

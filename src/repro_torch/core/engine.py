@@ -13,11 +13,15 @@ through one registered engine, picked by ``cfg.engine``:
   the device; the fused walk runs all rounds in one CUDA launch.
 
 Both engines resolve through the same `deltatree.searchnode` and report
-the same per-query ``hops`` (ΔNodes visited), bit for bit.
+the same per-query ``hops`` (ΔNodes visited), bit for bit.  Both serve
+ordered range scans (`scan`, `successor_k`): the scalar engine with one
+host-driven `deltatree.scan_one` per lane, the lockstep engine with one
+`kernels.ops.delta_scan` launch for the whole batch; under non-eager
+maintenance one shared merge adds the pending overflow-buffer items.
 
 Not yet ported: ``engine="auto"`` (its table was measured on a TPU; the
-port gets one from H100 rows), scans, the fused forest entry point and
-read statistics.
+port gets one from H100 rows), the fused forest entry point and read
+statistics.
 """
 
 from __future__ import annotations
@@ -41,11 +45,18 @@ class SearchEngine:
                map-mode read; set mode returns payload 0/-1.  ``search``
                is this minus the payload column.
     successor: (cfg, t, keys[K]) -> (found[K], succ[K])
+    scan_batch: optional ordered bulk read — (cfg, t, starts[K], his[K],
+               max_out) -> (out[K, max_out] packed, n[K],
+               hops[K], more[K]) — up to ``max_out`` live *leaf* items per
+               lane with start < key <= hi, key ascending; tree side only
+               (the `scan` dispatch merges I5' buffered items).  None
+               means the engine cannot serve range_scan / successor_k.
     """
 
     name: str
     lookup: Callable[..., Any]
     successor: Callable[..., Any]
+    scan_batch: Callable[..., Any] | None = None
 
 
 _ENGINES: dict[str, SearchEngine] = {}
@@ -118,6 +129,77 @@ def _fold_floor(cfg, bf, found, succ):
     return found | bfound, torch.where(better, bkey, succ)
 
 
+def scan(cfg, t, starts, his, *, max_out: int):
+    """Engine-dispatched ordered bulk read: per lane, up to ``max_out``
+    live items with ``start < key <= hi`` in key order.
+
+    Returns (out (K, max_out) packed ascending with ``cfg.route_left``
+    padding, n (K,), hops (K,), more (K,) bool); ``more`` marks lanes that
+    filled their row with live items remaining — the continuation cursor
+    is ``key_of(out[lane, n-1])``.
+
+    Under a non-eager maintenance policy the engines' tree-side run misses
+    pending overflow-buffer items (invariant I5'); the dispatch merges them
+    here, one shared merge above both engines (`_merge_buffered_run`), so
+    scalar/lockstep parity of the merged run is structural, like
+    `successor`'s `_fold_floor`.  Eager trees skip the merge.
+    """
+    eng = get_engine(cfg.engine)
+    if eng.scan_batch is None:
+        raise NotImplementedError(
+            f"engine {cfg.engine!r} declares no scan_batch hook")
+    starts, his = _keys(t, starts), _keys(t, his)
+    with TR.annotate(f"engine.{cfg.engine}.scan"):
+        out, n, hops, more = eng.scan_batch(cfg, t, starts, his, max_out)
+    if cfg.maintenance == "eager":
+        return out, n, hops, more
+    out, n, more = _merge_buffered_run(cfg, t, starts, his, out, n, more,
+                                       max_out)
+    return out, n, hops, more
+
+
+def successor_k(cfg, t, keys, k: int):
+    """Engine-dispatched bulk successors: the ``k`` smallest live keys
+    strictly greater than each query key — `scan` with an unbounded upper
+    band (same return contract; ``more`` = more than ``k`` successors)."""
+    keys = _keys(t, keys)
+    his = torch.full_like(keys, layout.KEY_MAX)
+    return scan(cfg, t, keys, his, max_out=k)
+
+
+def _merge_buffered_run(cfg, t, starts, his, out, n, more, max_out: int):
+    """Merge each lane's I5' buffered items into its emitted tree run.
+
+    One sort of the flattened buffer arena (``route_left`` padding), then
+    per lane the window of buffered values in (start, cap], where ``cap``
+    is the last tree-emitted key when the tree side overflowed (items past
+    the truncation point belong to the continuation — unseen *tree* items
+    there could precede them) and ``hi`` otherwise.  Leaves and buffers are
+    key-disjoint (inserts dedup against both), so the union of the two
+    sorted runs is strictly sorted and a concat + row sort merges them.
+    Skipped, one host check, when every buffer is empty.
+    """
+    if not bool((t.bcount > 0).any()):
+        return out, n, more
+    big = cfg.route_left
+    flat = torch.where(t.buf != EMPTY, t.buf, big).reshape(-1)
+    s = torch.sort(flat).values
+    nb = s.shape[0]
+    idx0 = torch.searchsorted(s, cfg.qpack(starts).to(s.dtype),
+                              right=True).to(torch.int32)
+    last = out.gather(1, (n - 1).clamp(0, max_out - 1).long()[:, None])[:, 0]
+    cap = torch.where(more, last | cfg.pmask, cfg.qpack(his).to(s.dtype))
+    idxc = torch.searchsorted(s, cap, right=True).to(torch.int32)
+    bic = idxc - idx0                     # buffered count in (start, cap]
+    span = torch.arange(max_out, dtype=torch.int32, device=s.device)
+    win = (idx0[:, None] + span[None, :]).clamp(0, nb - 1).long()
+    cands = torch.where(span[None, :] < bic[:, None], s[win],
+                        torch.full_like(win, big, dtype=s.dtype))
+    union = torch.sort(torch.cat([out, cands], dim=1), dim=1).values
+    return (union[:, :max_out], torch.clamp(n + bic, max=max_out),
+            more | (n + bic > max_out))
+
+
 # --------------------------------------------------------------------------
 # "scalar" — the reference engine (one host-driven descent per query)
 # --------------------------------------------------------------------------
@@ -146,8 +228,27 @@ def _scalar_successor(cfg, t, keys: torch.Tensor):
             torch.tensor([r[1] for r in res], dtype=torch.int32, device=dev))
 
 
+def _scalar_scan(cfg, t, starts: torch.Tensor, his: torch.Tensor,
+                 max_out: int):
+    """One host-driven `deltatree.scan_one` per lane."""
+    k, dev = starts.shape[0], t.value.device
+    out = torch.empty((k, max_out), dtype=cfg.vdtype, device=dev)
+    n = torch.empty(k, dtype=torch.int32, device=dev)
+    hops = torch.empty(k, dtype=torch.int32, device=dev)
+    more = torch.empty(k, dtype=torch.bool, device=dev)
+    for i, (s, h) in enumerate(zip(starts.tolist(), his.tolist())):
+        out[i], n[i], hops[i], more[i] = DT.scan_one(cfg, t, s, h, max_out)
+    # reserved ROUTE_LEFT starts are born done under the lockstep pad-lane
+    # sentinel contract: mirror it (empty run, hops 0)
+    pad = starts == layout.ROUTE_LEFT
+    return (torch.where(pad[:, None], torch.full_like(out, cfg.route_left),
+                        out),
+            torch.where(pad, 0, n), torch.where(pad, 0, hops), more & ~pad)
+
+
 register_engine(SearchEngine(
-    name="scalar", lookup=_scalar_lookup, successor=_scalar_successor))
+    name="scalar", lookup=_scalar_lookup, successor=_scalar_successor,
+    scan_batch=_scalar_scan))
 
 
 # --------------------------------------------------------------------------
@@ -230,5 +331,19 @@ def _lockstep_successor(cfg, t, keys: torch.Tensor, max_chase: int = 8):
     return _successor_chase(cfg, t, keys, max_chase=max_chase)
 
 
+def _lockstep_scan(cfg, t, starts: torch.Tensor, his: torch.Tensor,
+                   max_out: int):
+    """The emit-cursor scan frontier: one `delta_scan` call for the whole
+    batch — every FIND / VERIFY pass of every lane inside one
+    `veb_scan_fused` launch."""
+    from repro_torch.kernels import ops as OPS
+
+    return OPS.delta_scan(t.value, t.mark, t.child, t.root,
+                          _walk_queries(cfg, starts), cfg.qpack(his),
+                          height=cfg.height, max_out=max_out,
+                          pmask=int(cfg.pmask))
+
+
 register_engine(SearchEngine(
-    name="lockstep", lookup=_lockstep_lookup, successor=_lockstep_successor))
+    name="lockstep", lookup=_lockstep_lookup, successor=_lockstep_successor,
+    scan_batch=_lockstep_scan))

@@ -3,8 +3,9 @@ of ``repro.kernels``).
 
 - csrc/veb_walk.cu — the vEB walk kernels (fused multi-round, and one
   round over pre-gathered rows)
+- csrc/veb_scan.cu — the emit-cursor range-scan kernel
 - build.py         — nvcc build at first use, ctypes loading
 - veb_search.py    — the wrappers (CUDA tensor -> kernel, CPU -> ref)
 - ref.py           — the plain PyTorch versions (CPU path, ground truth)
-- ops.py           — the multi-round walk (public API)
+- ops.py           — the multi-round walk and the scan (public API)
 """

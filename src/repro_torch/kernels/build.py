@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain ``extern "C"`` interface; no PyTorch
 header is included, so a build takes seconds.  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root (git-ignored), named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads from the cache.  A failed build raises with nvcc's
+by a hash of the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited source or header rebuilds and an unchanged one loads from the
+cache.  A failed build raises with nvcc's
 output.  Nothing here runs at import time.
 """
 
@@ -50,7 +51,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
+    # the hash covers the shared headers too, so editing one rebuilds
+    src = (CSRC / source).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -79,10 +82,13 @@ def _compile(source: str) -> Path:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library for ``source`` (built on first use)."""
+    """The loaded library for ``source`` (built on first use).  Builds of
+    different sources may run in parallel threads; the lock only guards
+    the table of loaded libraries."""
     with _LOCK:
         lib = _LOADED.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(_compile(source)))
-            _LOADED[source] = lib
+    if lib is not None:
         return lib
+    path = _compile(source)
+    with _LOCK:
+        return _LOADED.setdefault(source, ctypes.CDLL(str(path)))

@@ -22,22 +22,14 @@
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "veb_common.cuh"
 
 namespace {
 
-constexpr int kMaxHeight = 12;   // pos table 2**12 int32 = 16 KB of shared memory
-constexpr int kThreads = 256;    // chosen without measurement
-
-template <typename T> struct Big;
-template <> struct Big<int32_t> { static constexpr int32_t value = 2147483647; };
-template <> struct Big<int64_t> { static constexpr int64_t value = int64_t(1) << 62; };
-
-__device__ __forceinline__ void stage_pos(int* s_pos, const int* pos, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) s_pos[j] = pos[j];
-  __syncthreads();
-}
+using veb::Big;
+using veb::kMaxHeight;
+using veb::kThreads;
+using veb::stage_pos;
 
 // All walk rounds in one launch.  Per lane: a blind descent of H router
 // loads through the vEB position table (EMPTY routes right), last-occupied
@@ -72,36 +64,16 @@ walk_fused_kernel(const T* __restrict__ value, const int32_t* __restrict__ child
 
   for (int r = 0; r < max_rounds && !resolved; ++r) {
     const int dnc = min(max(dn, 0), m - 1);
-    const T* row = value + static_cast<int64_t>(dnc) * ub;
-    T routers[kMaxHeight];
-    int bs[kMaxHeight];
-    int b = 1, lb = 1;
-    T lv = 0;
-#pragma unroll
-    for (int l = 0; l < kMaxHeight; ++l) {
-      if (l < height) {
-        const T router = row[s_pos[b]];
-        routers[l] = router;
-        bs[l] = b;
-        if (router != 0) { lb = b; lv = router; }
-        if (b < bottom0) b = 2 * b + (v >= router ? 1 : 0);
-      }
-    }
-    T rcand = big;
-#pragma unroll
-    for (int l = 0; l < kMaxHeight; ++l) {
-      if (l < height) {
-        const T router = routers[l];
-        if (router != 0 && bs[l] != lb && v < router && router < rcand) rcand = router;
-      }
-    }
+    const veb::Descent<T> d =
+        veb::descend(value + static_cast<int64_t>(dnc) * ub, s_pos, v, height);
+    const int lb = d.lb;
     const int nxt = lb >= bottom0
         ? child[static_cast<int64_t>(dnc) * lc + (lb - bottom0)] : -1;
     ++hops;
-    if (rcand < cand) cand = rcand;
+    if (d.rcand < cand) cand = d.rcand;
     if (nxt < 0) {
       resolved = true;
-      leaf_val = lv;
+      leaf_val = d.lv;
       leaf_b = lb;
       final_dn = dn;
     } else {

@@ -15,6 +15,8 @@
 - `delta_search`   — the 3-tuple (leaf_val, leaf_b, final_dn) contract.
 - `delta_contains` — paper SEARCHNODE set semantics on top (mark bit +
   overflow buffer check).
+- `delta_scan`     — the emit-cursor range scan: every FIND/VERIFY pass of
+  every lane inside one `veb_search.veb_scan_fused` launch.
 
 The JAX package's execution-mode knobs (interpret resolution, the
 ``REPRO_PALLAS_*`` variables, the TPU VMEM budget and 128-lane padding) were
@@ -29,7 +31,7 @@ import math
 import torch
 
 from repro_torch.kernels.veb_search import (
-    pos_table, veb_walk_fused, veb_walk_rows, walk_big,
+    pos_table, veb_scan_fused, veb_walk_fused, veb_walk_rows, walk_big,
 )
 from repro_torch.obs import trace as TR
 
@@ -147,3 +149,48 @@ def delta_contains(value: torch.Tensor, mark: torch.Tensor,
     leaf_live = leaf_hit & ~mark[dn, pos[lb.long()]]
     in_buf = (buf[dn] == queries[:, None]).any(dim=1)
     return torch.where(leaf_hit, leaf_live, in_buf)
+
+
+def scan_round_cap(height: int, max_dnodes: int, max_out: int,
+                   chase_slack: int = 16) -> int:
+    """Round bound for the emit-cursor scan: each emitted item costs at
+    most two full walk passes (FIND + VERIFY), each bounded by
+    `walk_round_cap`, plus slack passes for tombstone chases.  Generous by
+    design: a lane stops as soon as it is done."""
+    return walk_round_cap(height, max_dnodes) * 2 * (max_out + chase_slack)
+
+
+def delta_scan(value: torch.Tensor, mark: torch.Tensor, child: torch.Tensor,
+               root, starts: torch.Tensor, his: torch.Tensor, *,
+               height: int, max_out: int, pmask: int = 0,
+               max_rounds: int | None = None):
+    """Ordered range / successor-k scan over the lane frontier — the
+    emit-cursor variant of `delta_walk`, one `veb_scan_fused` launch for
+    the whole scan.
+
+    value/mark/child are the arena arrays, read in place; ``starts`` /
+    ``his`` are *packed* ``qpack`` bounds per lane (start exclusive, hi
+    inclusive in key space), cast to the value dtype.  ``root`` is a scalar
+    or per-lane (K,) seeds.  A lane whose start equals ``walk_big(dtype)``
+    is born done.  ``max_rounds=None`` derives the cap from the arena
+    geometry (`scan_round_cap`).
+
+    Returns per lane:
+      out:  (K, max_out) packed live *leaf* values in (start, hi], key
+            ascending, ``walk_big`` padding (overflow buffers are merged
+            by the engine dispatch — I5' correctness lives there)
+      n:    emitted count
+      hops: ΔNode visits across every pass (`delta_walk` accounting)
+      more: bool — the row filled with live items remaining; resume from
+            ``key_of(out[lane, n-1])``
+    """
+    TR.bump("delta_scan.dispatch")
+    if max_rounds is None:
+        max_rounds = scan_round_cap(height, value.shape[0], max_out)
+    starts = starts.to(value.dtype).contiguous()
+    his = his.to(value.dtype).contiguous()
+    roots = _roots(root, starts.shape[0], value.device)
+    with TR.annotate("delta_scan"):
+        return veb_scan_fused(value, mark, child, roots, starts, his,
+                              height=height, max_out=max_out, pmask=pmask,
+                              max_rounds=int(max_rounds))

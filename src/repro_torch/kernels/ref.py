@@ -151,3 +151,121 @@ def ref_delta_walk_fused(value: torch.Tensor, child: torch.Tensor, root,
 
 
 ref_delta_walk_fused.calls = 0
+
+
+def ref_delta_scan_fused(value: torch.Tensor, mark: torch.Tensor,
+                         child: torch.Tensor, root, starts: torch.Tensor,
+                         his: torch.Tensor, *, height: int, max_rounds: int,
+                         max_out: int, pmask: int = 0):
+    """The emit-cursor range scan over the arena (value/mark (M, UB),
+    child (M, leaf_cap)): the contract of ``ops.delta_scan``.
+
+    Each lane carries an emit cursor over the packed key space and fills
+    ``out[lane, :]`` with the live *leaf* values in ``(start, hi]`` in key
+    order (packed, ascending; ``walk_big`` pads unused slots).  ``starts``
+    and ``his`` are packed ``qpack`` bounds: start exclusive, hi inclusive
+    in key space (``v > start_q`` iff ``key(v) > start_key``, since qpack
+    packs an all-ones payload).  A lane alternates two pass kinds over the
+    round structure of `ref_delta_walk_fused` (one blind descent per
+    round, then the child hop):
+
+    * FIND — a successor walk from the root for the cursor, folding
+      left-turn routers plus the final live leaf into a candidate; no
+      candidate, or one above ``hi``, ends the lane;
+    * VERIFY — an exact walk for the candidate key (candidate routers may
+      be tombstones): a live hit is emitted and becomes the new cursor, or
+      sets ``more`` when the row is full; a dead one is chased (the cursor
+      moves past it without emitting).
+
+    Overflow buffers are not read: the engine dispatch merges I5'
+    buffered items into the emitted run (`repro_torch.core.engine`).
+
+    Returns (out (K, max_out) packed, n (K,) int32, hops (K,) int32, more
+    (K,) bool).  ``hops`` counts the rounds each lane stayed active (ΔNode
+    visits over every pass).  A lane whose start equals ``walk_big`` is
+    born done; a lane still running after ``max_rounds`` rounds keeps its
+    partial row with ``more`` False.
+    """
+    ref_delta_scan_fused.calls += 1
+    h = height
+    bottom0 = 2 ** (h - 1)
+    m, ub = value.shape
+    dev = value.device
+    pos = pos_table(h, dev).long()
+    big = walk_big(value.dtype)
+    starts = starts.to(value.dtype)
+    his = his.to(value.dtype)
+    k = starts.shape[0]
+    vflat = value.reshape(-1)
+    mflat = mark.reshape(-1)
+    dn0 = torch.as_tensor(root, dtype=torch.int32, device=dev).expand(k)
+    dn = dn0.clone()
+    verify = torch.zeros(k, dtype=torch.bool, device=dev)
+    q = starts.clone()              # FIND: the cursor; VERIFY: the candidate
+    cursor = starts.clone()         # start, then the last emitted (qpack)
+    cand = torch.full((k,), big, dtype=value.dtype, device=dev)
+    out = torch.full((k, max_out), big, dtype=value.dtype, device=dev)
+    n = torch.zeros(k, dtype=torch.int32, device=dev)
+    hops = torch.zeros(k, dtype=torch.int32, device=dev)
+    more = torch.zeros(k, dtype=torch.bool, device=dev)
+    done = starts == big            # sentinel lanes are born done
+    rounds = 0
+    while rounds < max_rounds and not bool(done.all()):
+        dnc = dn.clamp(0, m - 1).long()
+        base = dnc * ub
+        b = torch.ones(k, dtype=torch.int64, device=dev)
+        lb = torch.ones(k, dtype=torch.int64, device=dev)
+        lv = torch.zeros(k, dtype=value.dtype, device=dev)
+        routers, bs = [], []
+        for _ in range(h):                       # blind descent
+            router = vflat[base + pos[b]]
+            routers.append(router)
+            bs.append(b)
+            occ = router != EMPTY
+            lb = torch.where(occ, b, lb)
+            lv = torch.where(occ, router, lv)
+            b = torch.where(b < bottom0, 2 * b + (q >= router).long(), b)
+        rcand = torch.full((k,), big, dtype=value.dtype, device=dev)
+        for router, bi in zip(routers, bs):      # post-hoc candidate fold
+            fold = ((router != EMPTY) & (bi != lb) & (q < router)
+                    & (router < rcand))
+            rcand = torch.where(fold, router, rcand)
+        at_bottom = lb >= bottom0
+        slot = torch.where(at_bottom, lb - bottom0, 0)
+        nxt = torch.where(at_bottom, child[dnc, slot], -1).to(torch.int32)
+        act = ~done
+        hopping = act & (nxt >= 0)
+        res = act & (nxt < 0)                    # the pass resolved
+        cand = torch.where(act & ~verify & (rcand < cand), rcand, cand)
+        leaf_live = (lv != EMPTY) & ~mflat[base + pos[lb]]
+        # FIND resolution: fold the final leaf, then stop or verify
+        f_res = res & ~verify
+        leaf_fold = f_res & leaf_live & (lv > cursor) & (lv < cand)
+        cand = torch.where(leaf_fold, lv, cand)
+        f_none = f_res & ((cand == big) | (cand > his))
+        to_verify = f_res & ~f_none
+        # VERIFY resolution: emit a live hit, chase a tombstone
+        v_res = res & verify
+        hit = v_res & leaf_live & ((lv | pmask) == q)
+        can_emit = n < max_out
+        emit = hit & can_emit
+        full = hit & ~can_emit
+        chase = v_res & ~hit
+        rows = emit.nonzero()[:, 0]
+        out[rows, n[rows].long()] = lv[rows]
+        back_to_find = emit | chase
+        restart = to_verify | back_to_find
+        dn = torch.where(hopping, nxt, torch.where(restart, dn0, dn))
+        cursor = torch.where(back_to_find, q, cursor)
+        q = torch.where(to_verify, cand | pmask, q)
+        verify = (verify | to_verify) & ~back_to_find
+        cand = torch.where(restart, big, cand)
+        n = n + emit.to(torch.int32)
+        hops = hops + act.to(torch.int32)
+        more = more | full
+        done = done | f_none | full
+        rounds += 1
+    return out, n, hops, more
+
+
+ref_delta_scan_fused.calls = 0

@@ -1,7 +1,9 @@
-"""The vEB walk kernels: CUDA for tensors on the card, plain PyTorch on the CPU.
+"""The vEB walk and scan kernels: CUDA for tensors on the card, plain
+PyTorch on the CPU.
 
 Port of ``repro.kernels.veb_search`` (Pallas on a TPU).  The kernels live in
-``csrc/veb_walk.cu`` and are built at first use (`kernels.build`); the
+``csrc/veb_walk.cu`` (the walks) and ``csrc/veb_scan.cu`` (the range scan)
+and are built at first use (`kernels.build`); the
 wrappers here check their inputs, allocate the outputs and launch on the
 current stream.  A tensor on the CPU goes to the plain version in
 `kernels.ref`; a CUDA tensor goes to the kernel, and a launch the card
@@ -25,12 +27,13 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import pos_table, walk_big  # noqa: F401
 
-MAX_HEIGHT = 12  # kMaxHeight in csrc/veb_walk.cu
+MAX_HEIGHT = 12  # kMaxHeight in csrc/veb_common.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FUSED_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_SCAN_ARGS = [_P] * 7 + [_I] * 7 + [ctypes.c_longlong] + [_P] * 5
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -41,10 +44,10 @@ def _suffix(dtype: torch.dtype) -> str:
     raise TypeError(f"walk kernels take int32 or int64 rows, got {dtype}")
 
 
-def _kernel_fn(name: str, argtypes):
+def _kernel_fn(name: str, argtypes, source: str = "veb_walk.cu"):
     from repro_torch.kernels.build import library
 
-    fn = getattr(library("veb_walk.cu"), name)
+    fn = getattr(library(source), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -172,3 +175,69 @@ def veb_walk_fused(value: torch.Tensor, child: torch.Tensor,
 
 
 veb_walk_fused.launches = 0
+
+
+def veb_scan_fused(value: torch.Tensor, mark: torch.Tensor,
+                   child: torch.Tensor, roots: torch.Tensor,
+                   starts: torch.Tensor, his: torch.Tensor, *, height: int,
+                   max_out: int, pmask: int, max_rounds: int):
+    """All passes of the emit-cursor range scan in one launch.
+
+    value:  (M, UB) arena rows, int32/int64 (read in place)
+    mark:   (M, UB) bool deletion marks
+    child:  (M, leaf_cap) int32 bottom-slot child ids (-1 none)
+    roots:  (K,) int32 per-lane seeds
+    starts/his: (K,) packed ``qpack`` bounds in the value dtype (start
+            exclusive, hi inclusive in key space); a start equal to
+            ``walk_big`` marks a lane that is born done
+
+    Returns (out (K, max_out) packed ascending with ``walk_big`` padding,
+    n (K,) int32, hops (K,) int32, more (K,) bool): the contract of
+    `ref.ref_delta_scan_fused`, which documents the passes.
+    """
+    _check_height(height)
+    if starts.dtype != value.dtype or his.dtype != value.dtype:
+        raise TypeError(f"starts {starts.dtype} / his {his.dtype} != "
+                        f"value {value.dtype}")
+    if max_out < 1:
+        raise ValueError(f"veb_scan_fused: max_out must be >= 1, got {max_out}")
+    if value.device.type == "cpu":
+        return ref.ref_delta_scan_fused(value, mark, child, roots, starts, his,
+                                        height=height, max_rounds=max_rounds,
+                                        max_out=max_out, pmask=pmask)
+    if value.device.type != "cuda":
+        raise ValueError(f"veb_scan_fused: unsupported device {value.device}")
+    m, ub = value.shape
+    lc = child.shape[1]
+    k = starts.shape[0]
+    if ub != 2 ** height - 1 or lc != 2 ** (height - 1) or child.shape[0] != m:
+        raise ValueError("veb_scan_fused: arena shapes do not fit the height")
+    if mark.dtype != torch.bool or mark.shape != value.shape:
+        raise ValueError("veb_scan_fused: mark must be bool, shaped as value")
+    if child.dtype != torch.int32 or roots.dtype != torch.int32:
+        raise ValueError("veb_scan_fused: child and roots must be int32")
+    if roots.shape != (k,) or starts.shape != (k,) or his.shape != (k,):
+        raise ValueError("veb_scan_fused: roots, starts and his must be (K,)")
+    dev = value.device
+    pos = pos_table(height, dev)
+    _check_cuda("veb_scan_fused", dev, value=value, mark=mark, child=child,
+                roots=roots, starts=starts, his=his, pos=pos)
+    out = torch.empty((k, max_out), dtype=value.dtype, device=dev)
+    n = torch.empty(k, dtype=torch.int32, device=dev)
+    hops = torch.empty(k, dtype=torch.int32, device=dev)
+    more = torch.empty(k, dtype=torch.bool, device=dev)
+    fn = _kernel_fn(f"veb_scan_fused_{_suffix(value.dtype)}", _SCAN_ARGS,
+                    "veb_scan.cu")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(value.data_ptr(), mark.data_ptr(), child.data_ptr(),
+                 roots.data_ptr(), starts.data_ptr(), his.data_ptr(),
+                 pos.data_ptr(), k, m, ub, lc, height, int(max_out),
+                 int(max_rounds), int(pmask), out.data_ptr(), n.data_ptr(),
+                 hops.data_ptr(), more.data_ptr(), stream)
+    veb_scan_fused.launches += 1
+    _raise_on("veb_scan_fused", err)
+    return out, n, hops, more
+
+
+veb_scan_fused.launches = 0

@@ -1,4 +1,5 @@
-"""Maintenance scheduler (port of ``repro.maintenance``; eager policy)."""
+"""Maintenance scheduler (port of ``repro.maintenance``): the eager,
+deferred and budgeted policies."""
 
 from repro_torch.maintenance.policy import KINDS, MaintenancePolicy, parse_policy
 from repro_torch.maintenance.stats import MaintenanceStats

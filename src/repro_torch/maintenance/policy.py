@@ -7,9 +7,6 @@ inside ``TreeConfig`` as its string form.  The string forms accepted by
     "eager"        drain to fixpoint inside every update step (default)
     "deferred"     updates only append/mark; maintenance on flush()
     "budgeted:K"   at most K ΔNode repairs per update batch (K >= 1)
-
-Only ``eager`` runs in this package so far; the scheduler raises
-``NotImplementedError`` for the other two (see ROADMAP.md).
 """
 
 from __future__ import annotations

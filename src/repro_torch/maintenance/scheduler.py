@@ -1,21 +1,28 @@
 """MaintenanceScheduler — the update-step round loop (port of
-``repro.maintenance.scheduler``, eager policy).
+``repro.maintenance.scheduler``).
 
 One round = (op phase) + (maintenance phase).  The op phase finds every
 pending op's leaf position in one frontier pass (`kernels.ops.delta_walk`
 under the lockstep engine, one host-driven descent per op otherwise),
 applies the non-conflicting ops with the vectorized fast path, then runs up
 to ``budget`` leftovers one by one in batch order.  The maintenance phase
-processes every flagged ΔNode (Rebalance / Expand, then Merge), round after
-round, until the fixpoint — the eager policy, bit-identical to the JAX
-scheduler: same phase order, same per-phase budget, same round count.
+is what the policy controls (`policy.parse_policy`):
+
+- ``eager``:      every flagged ΔNode (Rebalance / Expand, then Merge),
+                  round after round, until the fixpoint;
+- ``deferred``:   no voluntary maintenance; *forced* repairs only, where a
+                  full buffer blocks a pending op or a repair left items
+                  that break invariant I5' (residual);
+- ``budgeted:K``: up to K voluntary repairs per batch, highest buffer
+                  occupancy first, then Merge candidates; forced repairs on
+                  top.
+
+Every policy is bit-identical to the JAX scheduler: same phase order, same
+per-phase budget, same ΔNode order, same round count.
 
 JAX's ``lax.cond`` / ``fori_loop(0, budget)`` with no-op iterations become
 Python loops over the real entries; the per-op and per-ΔNode work reads
 the rows it needs to the host (`repro_torch.core.deltatree`).
-
-The ``deferred`` and ``budgeted:K`` policies are not ported yet and raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,18 +30,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import deltatree as DT
-from repro_torch.maintenance.policy import parse_policy
+from repro_torch.maintenance.policy import MaintenancePolicy, parse_policy
 from repro_torch.maintenance.stats import MaintenanceStats
 from repro_torch.obs import trace as TR
-
-
-def require_eager(policy) -> None:
-    """Raise for a maintenance policy this package does not run yet."""
-    policy = parse_policy(policy)
-    if not policy.eager:
-        raise NotImplementedError(
-            f"maintenance policy {str(policy)!r} is not ported to "
-            f"repro_torch yet (only 'eager'); see ROADMAP.md, Queue 1")
 
 
 def pending_count(cfg, t) -> int:
@@ -80,16 +78,20 @@ def _ops_phase(cfg, t, results, pending, kinds, keys, payloads, budget):
     Under the lockstep engine the round's positions also seed the
     sequential ops as descent *hints*: within an op phase the structure
     only grows downward, so restarting `_descend` from the round-start
-    endpoint reaches the true endpoint.  Returns (t, results, pending).
+    endpoint reaches the true endpoint.
+
+    Returns (t, results, pending, dns): the round-start positions go back
+    to the relaxed policies' `forced_mask`, which reads them only where
+    an op is still pending (zeros when nothing was pending).
     """
     if not bool(pending.any()):
-        return t, results, pending
+        return t, results, pending, torch.zeros_like(keys)
     dns, bs = _positions(cfg, t, cfg.qpack(keys))
     if cfg.parallel_updates:
         t, results, pending = DT._parallel_fastpath(
             cfg, t, kinds, keys, payloads, results, pending, dns, bs)
     if not bool(pending.any()):
-        return t, results, pending
+        return t, results, pending, dns
 
     pend, res = pending.tolist(), results.tolist()
     kinds_h, keys_h, pays_h = kinds.tolist(), keys.tolist(), payloads.tolist()
@@ -109,7 +111,7 @@ def _ops_phase(cfg, t, results, pending, kinds, keys, payloads, budget):
         res[i], pend[i] = ok, pd
     dev = results.device
     return (t, torch.tensor(res, dtype=torch.bool, device=dev),
-            torch.tensor(pend, dtype=torch.bool, device=dev))
+            torch.tensor(pend, dtype=torch.bool, device=dev), dns)
 
 
 # --------------------------------------------------------------------------
@@ -117,23 +119,27 @@ def _ops_phase(cfg, t, results, pending, kinds, keys, payloads, budget):
 # --------------------------------------------------------------------------
 
 
-def _flagged(flag: torch.Tensor, alive: torch.Tensor, budget: int) -> list:
-    """The first ``budget`` ΔNode ids (in arena order) with ``flag`` set."""
-    return torch.nonzero(flag & alive)[:budget, 0].tolist()
+def _first(mask: torch.Tensor, budget: int) -> list:
+    """The first ``budget`` ΔNode ids (in arena order) set in ``mask``."""
+    return torch.nonzero(mask)[:budget, 0].tolist()
 
 
-def _ins_sweep(cfg, t, work, ids):
-    """Rebalance or Expand each ΔNode in ``ids``.  Returns (t, work)."""
+def _ins_sweep(cfg, t, work, mask, budget):
+    """Rebalance or Expand the first ``budget`` ΔNodes of ``mask``, taken
+    when the sweep starts.  Returns (t, work, processed-mask)."""
+    ids = _first(mask, budget)
     for dn in ids:
         t, rebuilds, expands = DT._process_ins(cfg, t, dn)
         work = (work[0] + rebuilds, work[1] + expands, work[2], work[3])
-    return t, work
+    pmask = torch.zeros_like(mask)
+    pmask[ids] = True
+    return t, work, pmask
 
 
-def _del_sweep(cfg, t, work, ids):
-    """Merge each candidate in ``ids``; freed arena slots are counted as
-    freelist growth across the splice."""
-    for dn in ids:
+def _del_sweep(cfg, t, work, mask, budget):
+    """Merge the first ``budget`` candidates of ``mask``; freed arena
+    slots are counted as freelist growth across the splice."""
+    for dn in _first(mask, budget):
         ft = int(t.free_top)
         t, merged = DT._process_del(cfg, t, dn)
         work = (work[0], work[1], work[2] + merged,
@@ -145,8 +151,8 @@ def _maint_phases(cfg, t, work, budget):
     """One eager maintenance pass: up to ``budget`` ins-flagged ΔNodes
     (Rebalance / Expand), then up to ``budget`` Merge candidates, each set
     taken when its sweep starts.  Shared by `_run_eager` and `flush`."""
-    t, work = _ins_sweep(cfg, t, work, _flagged(t.ins_flag, t.alive, budget))
-    t, work = _del_sweep(cfg, t, work, _flagged(t.del_flag, t.alive, budget))
+    t, work, _ = _ins_sweep(cfg, t, work, t.ins_flag & t.alive, budget)
+    t, work = _del_sweep(cfg, t, work, t.del_flag & t.alive, budget)
     return t, work
 
 
@@ -158,10 +164,103 @@ def _run_eager(cfg, t, kinds, keys, payloads, results, pending, budget):
     rounds, work = 0, (0, 0, 0, 0)
     while rounds < cfg.max_rounds and (bool(pending.any()) or _busy(t)):
         with TR.annotate("maint.ops"):
-            t, results, pending = _ops_phase(cfg, t, results, pending, kinds,
-                                             keys, payloads, budget)
+            t, results, pending, _ = _ops_phase(cfg, t, results, pending,
+                                                kinds, keys, payloads, budget)
         with TR.annotate("maint.sweep"):
             t, work = _maint_phases(cfg, t, work, budget)
+        rounds += 1
+    return t, results, rounds, work
+
+
+# --------------------------------------------------------------------------
+# deferred / budgeted — carry flags forward, force only what blocks
+# --------------------------------------------------------------------------
+
+
+def _forced_mask(cfg, t, pending, residual, dns):
+    """ΔNodes that must be repaired now: targets of *blocked* pending ops
+    (full target buffer — an op merely carried past the per-round
+    sequential budget retries next round without maintenance), residual
+    (I5'-violating) nodes, and — while residual exists — every full buffer
+    (a keep's blocker is a full child buffer).  ``dns`` are the round's
+    op-phase positions (no second walk)."""
+    m = cfg.max_dnodes
+    blocked = pending & (t.bcount[dns.long().clamp(0, m - 1)] >= cfg.buf_cap)
+    mask = torch.zeros_like(t.alive)
+    mask[dns[blocked].long()] = True
+    full = t.bcount >= cfg.buf_cap
+    mask = mask | residual | (full & bool(residual.any()))
+    return mask & t.ins_flag & t.alive
+
+
+def _voluntary_phase(cfg, t, work, repairs, residual, vol: int):
+    """Budgeted only: top-occupancy Rebalance / Expand repairs, then Merge
+    candidates, sharing one per-batch repair budget ``vol``.  Returns
+    (t, work, repairs, residual)."""
+    m = cfg.max_dnodes
+    vol_k = min(vol, m)
+    low_water = max(1, m // 8)  # freelist pressure threshold (slots)
+    occ = torch.where(t.ins_flag & t.alive, t.bcount, -1)
+    # top_k order: highest occupancy first, ties to the lower id
+    ids = torch.argsort(-occ, stable=True)[:vol_k]
+    for dn, val in zip(ids.tolist(), occ[ids].tolist()):
+        if val < 0 or repairs >= vol:
+            break
+        t, rb, ex = DT._process_ins(cfg, t, dn)
+        # an Expand that "kept" items (full child) left dn I5'-violating:
+        # residual, drained by the forced sweep before the step returns
+        residual[dn] = bool(t.bcount[dn] > 0)
+        work = (work[0] + rb, work[1] + ex, work[2], work[3])
+        repairs += 1
+    # Merge candidates run in arena order, except under freelist pressure:
+    # then candidates whose splice returns a child slot (live sibling, no
+    # children, drained buffer) run first
+    idx = torch.arange(m, dtype=torch.int32, device=t.alive.device)
+    cand = t.del_flag & t.alive
+    par = t.parent.long().clamp(min=0)
+    sib_ok = t.child[par, (t.pslot ^ 1).long()] >= 0
+    reclaim = (t.parent >= 0) & sib_ok & (t.nchild == 0) & (t.bcount == 0)
+    pressure = int(t.free_top) < low_water
+    rank = torch.where(cand, idx + (m if pressure else 0) * (~reclaim).int(),
+                       2 * m)
+    order = torch.argsort(rank, stable=True)[:vol_k]
+    del_ids = order[rank[order] < 2 * m].tolist()
+    for dn in del_ids:
+        # merging under a parent with buffered items would re-route those
+        # items' descents into the merged child (an I5' violation a budget
+        # would strand): defer the merge until the parent drains
+        if repairs >= vol:
+            break
+        if int(t.bcount[max(int(t.parent[dn]), 0)]) != 0:
+            continue
+        ft = int(t.free_top)
+        t, mg = DT._process_del(cfg, t, dn)
+        work = (work[0], work[1], work[2] + mg,
+                work[3] + int(t.free_top) - ft)
+        repairs += 1
+    return t, work, repairs, residual
+
+
+def _run_relaxed(cfg, policy: MaintenancePolicy, t, kinds, keys, payloads,
+                 results, pending, budget):
+    vol = policy.budget if policy.kind == "budgeted" else 0
+    rounds, work, repairs = 0, (0, 0, 0, 0), 0
+    residual = torch.zeros_like(t.alive)
+    while rounds < cfg.max_rounds and (
+            bool(pending.any()) or bool((residual & t.alive).any())
+            or (repairs < vol and _busy(t))):
+        with TR.annotate("maint.ops"):
+            t, results, pending, dns = _ops_phase(
+                cfg, t, results, pending, kinds, keys, payloads, budget)
+        if repairs < vol and _busy(t):
+            t, work, repairs, residual = _voluntary_phase(
+                cfg, t, work, repairs, residual, vol)
+        fmask = _forced_mask(cfg, t, pending, residual, dns)
+        if bool(fmask.any()):
+            with TR.annotate("maint.sweep"):
+                t, work, pmask = _ins_sweep(cfg, t, work, fmask, budget)
+            residual = (residual & ~pmask) | (pmask & (t.bcount > 0)
+                                              & t.alive)
         rounds += 1
     return t, results, rounds, work
 
@@ -172,12 +271,12 @@ def _run_eager(cfg, t, kinds, keys, payloads, results, pending, budget):
 
 
 def run_update(cfg, t, kinds, keys, payloads=None):
-    """Apply one update batch under ``cfg.maintenance`` (eager only).
+    """Apply one update batch under ``cfg.maintenance``.
 
     Returns (tree, results[K] bool, MaintenanceStats); the tree is updated
     in place.
     """
-    require_eager(cfg.maintenance)
+    policy = parse_policy(cfg.maintenance)
     dev = t.value.device
     kinds = torch.as_tensor(kinds, dtype=torch.int32, device=dev)
     keys = torch.as_tensor(keys, dtype=torch.int32, device=dev)
@@ -188,8 +287,12 @@ def run_update(cfg, t, kinds, keys, payloads=None):
     results = torch.zeros(k, dtype=torch.bool, device=dev)
     pending = kinds != DT.OP_SEARCH
     budget = min(k, 64)  # sequential work per round (leftovers re-round)
-    t, results, rounds, work = _run_eager(cfg, t, kinds, keys, payloads,
-                                          results, pending, budget)
+    if policy.eager:
+        t, results, rounds, work = _run_eager(
+            cfg, t, kinds, keys, payloads, results, pending, budget)
+    else:
+        t, results, rounds, work = _run_relaxed(
+            cfg, policy, t, kinds, keys, payloads, results, pending, budget)
     stats = MaintenanceStats(
         rounds=rounds, rebuilds=work[0], expands=work[1], merges=work[2],
         pending=pending_count(cfg, t), reclaimed=work[3])
@@ -198,7 +301,9 @@ def run_update(cfg, t, kinds, keys, payloads=None):
 
 def flush(cfg, t, budget: int = 64):
     """Drain every flagged ΔNode to the maintenance fixpoint (restores I5),
-    in rounds structured exactly like the eager loop's.  Returns (tree,
+    in rounds structured exactly like the eager loop's: a deferred batch
+    followed by ``flush(budget=min(K, 64))`` reproduces the eager tree bit
+    for bit whenever no op was force-blocked mid-batch.  Returns (tree,
     MaintenanceStats)."""
     rounds, work = 0, (0, 0, 0, 0)
     while rounds < cfg.max_rounds and _busy(t):

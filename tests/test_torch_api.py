@@ -1,7 +1,8 @@
 """PyTorch port: the Index API — a random op trace through the port's
 ``make_index("deltatree", engine="lockstep", device="cpu")`` equals the
-JAX package's ``make_index`` and the oracle; what the port does not run yet
-raises; with no card and no explicit device the entry points raise."""
+JAX package's ``make_index`` and the oracle; every maintenance policy runs;
+what the port does not run yet raises; with no card and no explicit device
+the entry points raise."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -65,7 +66,10 @@ def test_map_mode_lookup_and_capability():
     assert pay.tolist() == [20, -1, 26]
     cap = ix.capability
     assert cap.map_mode and cap.successor
-    assert not (cap.range_scan or cap.successor_k or cap.deferred_maintenance)
+    assert cap.range_scan and cap.successor_k and cap.deferred_maintenance
+    assert not (cap.sharded or cap.fused_forest)
+    page = ix.range_scan(10, 20)
+    assert page.items() == [(10, 20), (13, 26), (16, 32), (19, 38)]
     with pytest.raises(CapabilityError):
         make_index("deltatree", initial=vals, height=4, max_dnodes=128,
                    device="cpu").lookup([10])
@@ -86,9 +90,37 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
                       device="cpu").size() == 0
 
 
+@pytest.mark.parametrize("policy", ["deferred", "budgeted:4"])
+def test_relaxed_policies_run(policy):
+    """An index under each relaxed policy takes updates, carries buffered
+    items, reads them back and flushes to the oracle's live set."""
+    rng = np.random.default_rng(5)
+    init = np.unique(rng.integers(1, 400, 60)).astype(np.int32)
+    ix = make_index("deltatree", initial=init, height=4, max_dnodes=256,
+                    buf_cap=8, engine="lockstep", maintenance=policy,
+                    device="cpu")
+    assert ix.maintenance == policy and ix.capability.deferred_maintenance
+    oracle = SetOracle(init)
+    pending = 0
+    for _ in range(4):
+        kinds = rng.choice([0, 1, 1, 2], 32).astype(np.int32)
+        keys = rng.integers(1, 400, 32).astype(np.int32)
+        ix, res, stats = ix.update(OpBatch.mixed(kinds, keys))
+        np.testing.assert_array_equal(res.numpy(),
+                                      oracle.apply_updates(kinds, keys))
+        pending = max(pending, stats.pending)
+        assert ix.size() == len(oracle.s)
+        np.testing.assert_array_equal(ix.search(keys)[0].numpy(),
+                                      oracle.snapshot_search(keys))
+    assert pending > 0
+    assert ix.range_scan(1, 400, max_items=256).keys.tolist() == \
+        sorted(oracle.s)
+    ix, stats = ix.flush()
+    assert stats.pending == 0
+    assert [k for k, _ in ix.live_items()] == sorted(oracle.s)
+
+
 @pytest.mark.parametrize("kw,exc", [
-    (dict(maintenance="deferred"), NotImplementedError),
-    (dict(maintenance="budgeted:4"), NotImplementedError),
     (dict(engine="auto"), NotImplementedError),
     (dict(collect_stats=True), NotImplementedError),
     (dict(maintenance="lazy"), ValueError),
@@ -101,9 +133,26 @@ def test_unported_options_raise(kw, exc):
 
 
 def test_scheduler_rejects_non_eager_policy():
+    """The scheduler takes every policy: `run_update` under ``deferred``
+    equals the JAX scheduler (results, stats, all 16 arrays) on a batch
+    that leaves items buffered, on both engines."""
+    from repro.core import deltatree as JDT
+    from repro.maintenance import scheduler as JMS
     from repro_torch.maintenance.scheduler import run_update
 
-    cfg = TDT.TreeConfig(height=4, max_dnodes=64, maintenance="deferred")
-    t = TDT.empty(TDT.TreeConfig(height=4, max_dnodes=64), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_update(cfg, t, [1], [5])
+    from _torch_parity import port_cfg
+
+    init = np.arange(2, 120, 3, dtype=np.int32)
+    keys = np.arange(1, 120, 3, dtype=np.int32)[:32]
+    kinds = np.ones(keys.size, np.int32)
+    for engine in ("lockstep", "scalar"):
+        jcfg = JDT.TreeConfig(height=4, max_dnodes=64, buf_cap=4,
+                              engine=engine, maintenance="deferred")
+        cfg = port_cfg(jcfg)
+        jt, jres, jst = JMS.run_update(jcfg, JDT.bulk_build(jcfg, init),
+                                       jnp.asarray(kinds), jnp.asarray(keys))
+        tt, tres, tst = run_update(
+            cfg, TDT.bulk_build(cfg, init, device="cpu"), kinds, keys)
+        np.testing.assert_array_equal(np.asarray(jres), tres.numpy())
+        assert jst.asdict() == tst._asdict() and tst.pending > 0
+        assert_trees_equal(jt, tt, engine)
