@@ -56,9 +56,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    buffered items (``stats.pending > 0``), so the scans merged them.  Then
    ``flush()`` and the live set.  The same for 3 steps under
    ``budgeted:8``.
+5. The serve path at Granite-8B width (``repro_torch.configs.granite_8b``):
+   ``paged_decode_attention`` against its plain version at Granite shapes
+   in float32 and bf16 (lengths in 1..2048 with a 0 and a one-page
+   length, -1 tails, scrambled unreferenced pages; within 2e-5, plus one
+   bf16 rounding step in bf16), timed in bf16 at the served batch (B = 8, ~1 k tokens)
+   and at decode_32k's batch at 4096 tokens beside its plain version,
+   SDPA with the gather of each sequence's pages (a yardstick the port
+   never calls) and the bytes bound; then a float32 Granite cut to 4
+   layers whose ``ServeEngine`` tokens must equal the dense decode's; the
+   36-layer bf16 model (weights drawn on the card from the seed) serving
+   16 requests with 8 live lanes, the index held to the pager's mapping
+   after every applied batch and every request's logits to the
+   teacher-forced dense decode within 5 % of the largest |logit|, with
+   at least 90 % of the argmaxes equal; three more steps timed, then
+   three traced with ``torch.profiler`` (device time by kind and the idle
+   share of those steps' wall time); and the churn trace under deferred maintenance with a
+   mid-trace ``scan`` checked against the block tables.
 Each run of a path (fused steps, per-round steps, scans, deferred,
-budgeted) sets the launch counters to 0 just before it and reads them just
-after: its kernels must have launched, and no plain version may have run.
+budgeted, each serve run) sets the launch counters to 0 just before it and
+reads them just after: its kernels must have launched (the paged kernel
+once per layer per decode step), and no plain version may have run.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -96,6 +114,26 @@ BUDGETED_STEPS = 3
 CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/veb_walk.cu"
 SCAN_SOURCE = f"{CSRC}/veb_scan.cu"
+PA_SOURCE = f"{CSRC}/paged_attention.cu"
+# phase 5: the serve path at Granite-8B width (src/repro/configs/granite_8b.py)
+PA_TOL = 2e-5    # kernel vs plain in float32, max abs (`paged_err`)
+PA_CHECK_B, PA_CHECK_MAX = 8, 2048   # check batch, lengths drawn in 1..2048
+PA_SERVED = (8, 1024)                # timed: the served batch, ~1 k tokens
+PA_LONG = (64, 4096)                 # timed: decode_32k's batch, shorter
+EXACT_LAYERS = 4                     # the float32 exact-token leg's depth
+EXACT_REQUESTS, EXACT_PROMPT, EXACT_NEW = 4, (16, 256), 8
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_LIVE = 16, (128, 1024), 32, 8
+TRACED_STEPS = 3     # full-width scheduler steps traced with torch.profiler
+CHURN_STEPS, CHURN_SPLIT, CHURN_HIGH_WATER = 24, 12, 16
+# bf16 logits of the paged path vs the dense decode at the same weights,
+# as a share of the request's largest |logit|: activations round to 8 bits
+# after every product, and the two attention paths round their outputs at
+# different points, so 36 residual layers drift (read on the H100: at most
+# 0.111 against 6.06 in the served run, 0.102 in the churn run)
+LOGIT_REL_TOL_BF16 = 0.05
+# share of teacher-forced decode steps whose argmax equals the dense
+# decode's (read on the H100: 0.974 served, 0.957 churn)
+TOKEN_MATCH_MIN_BF16 = 0.9
 
 
 class SmokeError(RuntimeError):
@@ -414,7 +452,8 @@ def card_check() -> tuple[str, str]:
 
     from repro_torch.kernels.build import library
 
-    sources = [Path(SOURCE).name, Path(SCAN_SOURCE).name]
+    sources = [Path(SOURCE).name, Path(SCAN_SOURCE).name,
+               Path(PA_SOURCE).name]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(library, sources))
@@ -658,27 +697,33 @@ def compare_kernels(keys, rng, device, flush) -> dict:
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import delta_paged_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels import veb_search as VS
 
     VS.veb_walk_fused.launches = 0
     VS.veb_walk_rows.launches = 0
     VS.veb_scan_fused.launches = 0
+    PA.paged_decode_attention.launches = 0
     ref.ref_delta_walk_fused.calls = 0
     ref.ref_veb_walk_rows.calls = 0
     ref.ref_delta_scan_fused.calls = 0
+    ref.ref_paged_decode_attention.calls = 0
 
 
 def read_counts() -> dict:
+    from repro_torch.kernels import delta_paged_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels import veb_search as VS
 
     return dict(fused=VS.veb_walk_fused.launches,
                 rows=VS.veb_walk_rows.launches,
                 scan=VS.veb_scan_fused.launches,
+                paged=PA.paged_decode_attention.launches,
                 plain=ref.ref_delta_walk_fused.calls
                 + ref.ref_veb_walk_rows.calls
-                + ref.ref_delta_scan_fused.calls)
+                + ref.ref_delta_scan_fused.calls
+                + ref.ref_paged_decode_attention.calls)
 
 
 def main_path(keys, rng, device, steps: int, walk_fused: bool):
@@ -887,9 +932,614 @@ def relaxed_path(keys, rng, device, policy: str, steps: int) -> dict:
                 flush_s=flush_s, flush_rounds=fstats.rounds)
 
 
+# --------------------------------------------------------------------------
+# phase 5: the serve path at Granite-8B width
+# --------------------------------------------------------------------------
+
+
+def paged_case(gen, rng, device, dtype, lens, scramble: bool = True,
+               spare: int = 64):
+    """Paged decode inputs at Granite width (QH 32, KVH 8, D 128, PS 16):
+    block tables from a random permutation of the pages with -1 tails,
+    ``spare`` unreferenced pages (scrambled to +-1e3 when asked), K/V and q
+    drawn on the card.  Returns (q, k_pages, v_pages, tables, lens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.granite_8b import CONFIG
+
+    ps, kvh, d = 16, CONFIG.num_kv_heads, CONFIG.head_dim
+    b = lens.size
+    need = -(-lens // ps)
+    maxp = max(int(need.max()), 1)
+    offs = np.concatenate([[0], np.cumsum(need)])
+    n_pages = int(offs[-1]) + spare
+    perm = rng.permutation(n_pages).astype(np.int32)
+    bt = np.full((b, maxp), -1, np.int32)
+    for i in range(b):
+        bt[i, :need[i]] = perm[offs[i]:offs[i + 1]]
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    kp = draw((n_pages, ps, kvh, d))
+    vp = draw((n_pages, ps, kvh, d))
+    if scramble:
+        unused = torch.as_tensor(perm[offs[-1]:].astype(np.int64),
+                                 device=device)
+        kp[unused] = 1e3
+        vp[unused] = -1e3
+    q = draw((b, CONFIG.num_heads, d))
+    return (q, kp, vp, torch.as_tensor(bt, device=device),
+            torch.as_tensor(lens.astype(np.int32), device=device))
+
+
+def paged_err(got, want) -> tuple[float, bool]:
+    """Max abs error of the paged kernel against its plain version, and
+    whether every element is in tolerance: within ``PA_TOL`` (the float32
+    sums' other order); in bfloat16 within ``PA_TOL`` plus one bf16
+    rounding step at the element's magnitude (2^(e-7) for |want| in
+    [2^e, 2^(e+1))), since both round an f32 result and may land on either
+    side of a rounding boundary."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    tol = torch.full_like(err, PA_TOL)
+    if got.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp(min=2.0 ** -126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(err.max()), bool((err <= tol).all())
+
+
+def paged_bytes(q, kp, bt, lens) -> int:
+    """Bytes paged decode attention must move: every K and V page below
+    ceil(seq_len / PS) once, q and the output, tables and lengths."""
+    ps, kvh, d = kp.shape[1], kp.shape[2], kp.shape[3]
+    pages = int(((lens.long() + ps - 1) // ps).clamp(max=bt.shape[1]).sum())
+    elt = kp.element_size()
+    return (2 * pages * ps * kvh * d * elt + 2 * q.numel() * elt
+            + bt.numel() * 4 + lens.numel() * 4)
+
+
+def sdpa_paged(q, kp, vp, bt, lens):
+    """The library yardstick (never called by the port): gather each
+    sequence's pages into a contiguous cache, then one
+    ``scaled_dot_product_attention`` with the length mask."""
+    import torch
+    import torch.nn.functional as F
+
+    b, qh, d = q.shape
+    ps, kvh = kp.shape[1], kp.shape[2]
+    maxp = bt.shape[1]
+    idx = bt.clamp(min=0).long()
+    k = kp[idx].reshape(b, maxp * ps, kvh, d).transpose(1, 2)
+    v = vp[idx].reshape(b, maxp * ps, kvh, d).transpose(1, 2)
+    mask = (torch.arange(maxp * ps, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    out = F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                         attn_mask=mask, enable_gqa=True)
+    return out[:, :, 0]
+
+
+def compare_paged(rng, device, seed: int) -> dict:
+    """Phase 5.1: the paged kernel against its plain version at Granite
+    shapes in float32 and bfloat16 (lengths in 1..2048 with a 0 and a
+    one-page length, -1 tails, scrambled unreferenced pages), then timed
+    in bfloat16 at the served batch and at decode_32k's batch beside the
+    plain version, the SDPA yardstick and the bytes bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.delta_paged_attention import (
+        paged_decode_attention,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    errs = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        lens = rng.integers(1, PA_CHECK_MAX + 1, PA_CHECK_B)
+        lens[0], lens[1] = 0, 16
+        args = paged_case(gen, rng, device, dtype, lens)
+        got = paged_decode_attention(*args)
+        want = ref.ref_paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        err, ok = paged_err(got, want)
+        check(bool(torch.isfinite(got).all()), f"paged kernel: non-finite "
+                                               f"output ({name})")
+        check(bool((got[0] == 0).all()), "paged kernel: length 0 is not 0")
+        check(ok, f"paged kernel != plain ({name}): max abs err {err}")
+        log(f"paged_decode_attention equals its plain version in {name}: "
+            f"max abs err {err} (tolerance {PA_TOL}"
+            f"{' + one bf16 rounding step' if name == 'bfloat16' else ''}), "
+            f"largest |out| {float(want.float().abs().max())}, lengths "
+            f"{lens.tolist()}")
+        errs[name] = err
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
+    rows = []
+    for b, tokens in (PA_SERVED, PA_LONG):
+        lens = np.full(b, tokens)
+        if b == PA_SERVED[0]:    # the served batch: lengths around 1 k
+            lens = rng.integers(tokens // 2, 3 * tokens // 2 + 1, b)
+        args = paged_case(gen, rng, device, torch.bfloat16, lens,
+                          scramble=False)
+        got = paged_decode_attention(*args)
+        lib = sdpa_paged(*args)
+        want = ref.ref_paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        nbytes = paged_bytes(args[0], args[1], args[3], args[4])
+        r = dict(B=b, tokens=int(lens.sum()), max_len=int(lens.max()),
+                 dtype="bfloat16",
+                 ms=cuda_ms(lambda: paged_decode_attention(*args), 20, flush),
+                 plain_ms=cuda_ms(lambda: ref.ref_paged_decode_attention(
+                     *args), 3, flush),
+                 library_ms=cuda_ms(lambda: sdpa_paged(*args), 10, flush),
+                 bytes=nbytes, bound_ms=bound_ms(nbytes),
+                 err=paged_err(got, want)[0],
+                 library_err=float((lib.float() - want.float()).abs().max()))
+        check(paged_err(got, want)[1], f"paged kernel != plain at B={b}: "
+                                       f"{r['err']}")
+        log(json.dumps({"table": "paged_decode_attention", **r}))
+        rows.append(r)
+        del args, got, lib, want
+        torch.cuda.empty_cache()
+    return dict(rows[0], max_abs_err=max(errs.values()), errs=errs,
+                cells=rows)
+
+
+def device_split(prof, steps: int) -> dict:
+    """Device time (ms) a step of a trace over ``steps`` scheduler steps,
+    by kind: the paged kernel, the matrix products, everything else, and
+    their sum (one stream, so the sum is the device's busy time)."""
+    import torch
+
+    out = {"paged": 0.0, "matmul": 0.0, "other": 0.0}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = evt.name
+        kind = ("paged" if "paged_decode_kernel" in name else
+                "matmul" if any(k in name for k in ("nvjet", "gemm", "splitK",
+                                                     "cutlass", "xmma"))
+                else "other")
+        out[kind] += evt.time_range.elapsed_us() / 1e3 / steps
+    out["busy"] = out["paged"] + out["matmul"] + out["other"]
+    return out
+
+
+def trace_steps(model, rng) -> dict:
+    """A separate short serve run at full width, so the trace costs the
+    measured runs nothing: 8 requests admitted and prefilled, one step to
+    warm up, ``TRACED_STEPS`` scheduler steps of 8 live lanes timed without
+    the profiler, then ``TRACED_STEPS`` more under ``torch.profiler``.
+    Returns the traced steps' device time a step by kind, their host wall
+    time a step (``step_ms``, a whole scheduler step: growth, lookups,
+    decode, tokens, staged updates), the idle share over that same span,
+    and the untraced steps' wall time a step (what the profiler costs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import PagerConfig, ServeEngine
+
+    cfg = model.cfg
+    eng = ServeEngine(cfg, model, PagerConfig(engine="lockstep"),
+                      max_batch=SERVE_LIVE)
+    for n in rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_LIVE):
+        eng.submit(rng.integers(1, cfg.vocab_size, int(n)).astype("int32"),
+                   max_new=SERVE_NEW)
+    eng.step()      # admits and prefills every request, decodes once
+    eng.step()
+
+    def steps() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRACED_STEPS):
+            check(len(eng.step()) == SERVE_LIVE, "trace: a lane finished")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TRACED_STEPS
+
+    untraced_ms = steps()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_ms = steps()
+    del eng
+    torch.cuda.empty_cache()
+    out = device_split(prof, TRACED_STEPS)
+    # not measured when the trace holds no device event
+    idle = 1 - out["busy"] / step_ms if out["busy"] > 0 else None
+    return dict(out, step_ms=step_ms, untraced_step_ms=untraced_ms,
+                idle_share=idle)
+
+
+class Probe:
+    """Instruments one serve run from the outside: wraps the scheduler's
+    decode (host time to the step's tokens, lanes), the pager's
+    block-table lookup (host time, synchronized), the paged kernel (CUDA
+    events per launch), the prefill (host time) and the decode step's
+    logits (kept per request on the card, for the dense comparison).
+    ``check_index`` holds the index's live items against the pager's
+    mapping after every applied batch."""
+
+    def __init__(self, eng, check_index: bool):
+        import torch
+
+        from repro_torch.serve import decode as D
+
+        self.eng, self.D = eng, D
+        self.decode_s, self.lookup_s, self.prefill_s = [], [], []
+        self.kernel_ms, self.lanes, self.index_checks = [], [], 0
+        self.logits: dict[int, list] = {}
+        self._events = []
+        self._orig = (D.paged_decode_attention, D.paged_decode_step,
+                      D.prefill_to_pages)
+        kern, step, prefill = self._orig
+
+        def timed_kernel(*a):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = kern(*a)
+            e.record()
+            self._events.append((s, e))
+            return out
+
+        def capture_step(*a, **k):
+            out = step(*a, **k)
+            self._last_logits = out[0][:, 0]
+            return out
+
+        def timed_prefill(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(*a, **k)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+            return out
+
+        D.paged_decode_attention = timed_kernel
+        D.paged_decode_step = capture_step
+        D.prefill_to_pages = timed_prefill
+        decode = eng._decode
+
+        def timed_decode(sids):
+            t0 = time.perf_counter()
+            toks = decode(sids)                 # ends in the tokens' sync
+            self.decode_s.append(time.perf_counter() - t0)
+            self.lanes.append(len(sids))
+            self.kernel_ms.append(sum(s.elapsed_time(e)
+                                      for s, e in self._events))
+            self._events.clear()
+            for bi, sid in enumerate(sids):
+                self.logits.setdefault(sid, []).append(
+                    self._last_logits[bi].clone())
+            return toks
+
+        eng._decode = timed_decode
+        pg = eng.pager
+        lookup = pg.block_tables
+
+        def timed_lookup(sids, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lookup(sids, n)
+            torch.cuda.synchronize()
+            self.lookup_s.append(time.perf_counter() - t0)
+            return out
+
+        pg.block_tables = timed_lookup
+        if check_index:
+            apply = pg.apply_staged
+
+            def checked_apply(*a, **k):
+                out = apply(*a, **k)
+                self.check_mapping()
+                return out
+
+            pg.apply_staged = checked_apply
+
+    def check_mapping(self) -> None:
+        """The index's live (key, page) items equal the pager's mapping:
+        every allocated block of every sequence, once all staged ops are
+        applied."""
+        pg = self.eng.pager
+        want = sorted(
+            (int(k), int(p)) for sid, n in pg.seq_blocks.items()
+            for k, p in zip(pg._key(sid, range(n)), pg._staged_pages[sid]))
+        check(pg.index.live_items() == want,
+              "the pager's index differs from its mapping")
+        self.index_checks += 1
+
+    def close(self) -> None:
+        D = self.D
+        (D.paged_decode_attention, D.paged_decode_step,
+         D.prefill_to_pages) = self._orig
+
+    def summary(self) -> dict:
+        return dict(
+            decode_steps=len(self.lanes),
+            decode_step_ms=statistics.median(self.decode_s) * 1e3,
+            lookup_ms=statistics.median(self.lookup_s) * 1e3,
+            kernel_ms_per_step=statistics.median(self.kernel_ms),
+            prefill_ms=statistics.median(self.prefill_s) * 1e3,
+            prefills=len(self.prefill_s),
+            mean_lanes=statistics.fmean(self.lanes),
+            decode_tokens=sum(self.lanes),
+            decode_tok_s=sum(self.lanes) / sum(self.decode_s),
+            mean_hops=self.eng.pager.stats["hops"]
+            / max(self.eng.pager.stats["searches"], 1),
+            walk_rounds=self.eng.pager.index.cfg.walk_round_cap,
+            index_checks=self.index_checks)
+
+
+def dense_check(model, req, logits, rel_tol: float | None):
+    """Teacher-forced dense decode of one request (`Transformer.prefill` +
+    `decode_step` on a dense cache, fed the request's own tokens): the
+    prefill token must be equal; each decode step's logits must be equal
+    in argmax (``rel_tol`` None: the exact leg) or within ``rel_tol`` of
+    the largest |logit|.  Returns (steps, argmax matches, max |diff|, max
+    |logit|)."""
+    import torch
+
+    out = req.out
+    n = len(out)
+    dev = model.device
+    caches = model.init_caches(1, len(req.prompt) + n)
+    lg, caches = model.prefill(torch.as_tensor(req.prompt, device=dev)[None],
+                               caches)
+    check(int(lg[0, -1].argmax()) == out[0],
+          f"request {req.seq_id}: prefill token differs from the dense one")
+    check(len(logits) == n - 1, f"request {req.seq_id}: {len(logits)} "
+                                f"decode logits for {n - 1} tokens")
+    match, diff, mag = 0, 0.0, 0.0
+    ln = len(req.prompt)
+    for j in range(1, n):
+        lg, caches = model.decode_step(
+            torch.tensor([[out[j - 1]]], dtype=torch.int32, device=dev),
+            caches, torch.tensor([ln], dtype=torch.int32, device=dev))
+        dense = lg[0, 0]
+        tok = int(dense.argmax())
+        match += tok == out[j]
+        diff = max(diff, float((dense - logits[j - 1]).abs().max()))
+        mag = max(mag, float(dense.abs().max()))
+        if rel_tol is None:
+            check(tok == out[j], f"request {req.seq_id}: token {j} is "
+                                 f"{out[j]}, the dense decode's {tok}")
+        ln += 1
+    if rel_tol is not None:
+        check(diff <= rel_tol * mag, f"request {req.seq_id}: logits differ "
+                                     f"from the dense decode by {diff} "
+                                     f"(> {rel_tol} x {mag})")
+    return n - 1, match, diff, mag
+
+
+def check_serve_counts(counts: dict, layers: int, steps: int, where: str):
+    check(counts["paged"] == layers * steps,
+          f"{where}: {counts['paged']} paged launches for {steps} decode "
+          f"steps of {layers} layers")
+    check(counts["fused"] > 0, f"{where}: the lookups did not launch "
+                               f"veb_walk_fused")
+    check(counts["plain"] == 0, f"{where}: a plain version ran")
+
+
+def run_engine(eng, prompts, max_new: int) -> float:
+    """Submit ``prompts`` and step until every request is done; returns the
+    wall seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    sids = [eng.submit(p, max_new=max_new) for p in prompts]
+    for _ in range(10_000):
+        if all(eng.active[s].done for s in sids):
+            break
+        eng.step()
+    torch.cuda.synchronize()
+    check(all(eng.active[s].done for s in sids), "a request never finished")
+    return time.perf_counter() - t0
+
+
+def exact_token_leg(rng, device, seed: int) -> dict:
+    """Phase 5.2: Granite at full width in float32, cut to 4 layers;
+    ServeEngine (lockstep lookups) on 4 requests must give the dense
+    decode's tokens exactly."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import PagerConfig, ServeEngine
+
+    cfg = dataclasses.replace(CONFIG, num_layers=EXACT_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    model = Transformer(cfg, device=device, seed=seed)
+    eng = ServeEngine(cfg, model, PagerConfig(engine="lockstep"),
+                      max_batch=EXACT_REQUESTS)
+    probe = Probe(eng, check_index=True)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype("int32")
+               for n in rng.integers(*EXACT_PROMPT, EXACT_REQUESTS)]
+    reset_counts()
+    wall = run_engine(eng, prompts, EXACT_NEW)
+    counts = read_counts()
+    probe.close()
+    check_serve_counts(counts, cfg.num_layers, len(probe.lanes),
+                       "float32 leg")
+    check(len(eng.pager.free_pages) == eng.pager.cfg.num_pages,
+          "float32 leg: pages not reclaimed")
+    steps = 0
+    for sid, req in eng.active.items():
+        n, match, _, _ = dense_check(model, req, probe.logits[sid], None)
+        steps += n
+    row = dict(layers=cfg.num_layers, dtype="float32", requests=len(prompts),
+               prompt_lens=[len(p) for p in prompts], wall_s=wall,
+               dense_steps_equal=steps, counts=counts, **probe.summary())
+    del eng, model, probe
+    torch.cuda.empty_cache()
+    return row
+
+
+def full_width_serve(rng, device, seed: int) -> dict:
+    """Phase 5.3: the 36-layer bf16 model; 16 requests (prompts in
+    128..1024, 32 new tokens each) through ServeEngine with 8 live lanes,
+    so slots recycle; the index checked against the pager after every
+    applied batch; every request's logits held against the dense decode.
+    Then phase 5.4, the churn trace on the same weights."""
+    import torch
+
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import PagerConfig, ServeEngine
+
+    cfg = CONFIG
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=device, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"Granite-8B at full width: {model.param_count()} parameters in "
+        f"{cfg.param_dtype}, made on the card in {init_s:.2f} s")
+    eng = ServeEngine(cfg, model, PagerConfig(engine="lockstep"),
+                      max_batch=SERVE_LIVE)
+    probe = Probe(eng, check_index=True)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype("int32")
+               for n in rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                                     SERVE_REQUESTS)]
+    reset_counts()
+    wall = run_engine(eng, prompts, SERVE_NEW)
+    counts = read_counts()
+    probe.close()
+    check_serve_counts(counts, cfg.num_layers, len(probe.lanes),
+                       "full-width serve")
+    pg = eng.pager
+    check(len(pg.free_pages) == pg.cfg.num_pages and not pg.seq_blocks,
+          "full-width serve: pages not reclaimed")
+    steps = match = 0
+    diff = mag = rel = 0.0
+    for sid, req in eng.active.items():
+        n, m, d, g = dense_check(model, req, probe.logits[sid],
+                                 LOGIT_REL_TOL_BF16)
+        steps, match = steps + n, match + m
+        diff, mag, rel = max(diff, d), max(mag, g), max(rel, d / g)
+    check(match >= TOKEN_MATCH_MIN_BF16 * steps, f"full-width serve: {match} "
+          f"of {steps} decode steps match the dense decode's argmax")
+    serve = dict(layers=cfg.num_layers, dtype=cfg.dtype,
+                 params=model.param_count(), init_s=init_s,
+                 requests=SERVE_REQUESTS, max_new=SERVE_NEW,
+                 live=SERVE_LIVE, wall_s=wall,
+                 tok_s=(probe.summary()["decode_tokens"] + SERVE_REQUESTS)
+                 / wall,
+                 token_match=match / steps, dense_steps=steps,
+                 max_logit_diff=diff, max_logit=mag, max_logit_rel=rel,
+                 counts=counts,
+                 pager=dict(pg.stats), obs=eng.obs.asdict(),
+                 **probe.summary())
+    del eng, probe
+    torch.cuda.empty_cache()
+    serve["device_ms"] = trace_steps(model, rng)
+    log(json.dumps({"serve_full_width": serve}))
+    churn = churn_trace(model, rng, seed)
+    return dict(serve=serve, churn=churn)
+
+
+def churn_trace(model, rng, seed: int) -> dict:
+    """Phase 5.4: the synthesized churn trace (arrivals in bursts, cancels,
+    zipf probes) at full width under deferred maintenance with the worker's
+    high-water mark; one scan of the live sequences mid-trace, checked
+    against their block tables; every finished request's logits held
+    against the dense decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import SchedulerConfig, ServeScheduler, synth_trace
+    from repro_torch.serving import PagerConfig
+
+    cfg = model.cfg
+    pc = PagerConfig(engine="lockstep", maintenance="deferred",
+                     maint_high_water=CHURN_HIGH_WATER)
+    sch = ServeScheduler(cfg, model, pc, SchedulerConfig())
+    probe = Probe(sch, check_index=False)
+    plans = synth_trace(CHURN_STEPS, seed, arrive_p=0.6, burst=2,
+                        prompt_lens=(16, 512), max_new=(8, 32),
+                        cancel_p=0.25, probes_per_step=32,
+                        vocab=cfg.vocab_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    sch.run_trace(plans[:CHURN_SPLIT], drain=False)
+    live = [r.seq_id for _, r in sch.queue.live()]
+    check(live, "churn: no live sequence to scan")
+    pages = sch.scan(live)
+    maxb = max(int(pg.size) for pg in pages.values()) + 1
+    table = sch.pager.block_tables(live, maxb).cpu().numpy()
+    for i, sid in enumerate(live):
+        row = table[i]
+        want = row[: int((row >= 0).sum())]
+        check(np.array_equal(pages[sid], want) and (row[want.size:] < 0).all(),
+              f"churn: scan of sequence {sid} differs from its block table")
+    summary = sch.run_trace(plans[CHURN_SPLIT:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    probe.close()
+    check_serve_counts(counts, cfg.num_layers, len(probe.lanes), "churn")
+    ws = sch.worker.stats()
+    check(ws["drains"] > 0, "churn: the worker never drained")
+    check(sch.pager.stats["inline_maint"] == 0,
+          "churn: the decode path ran structural maintenance")
+    check(len(sch.pager.free_pages) == pc.num_pages,
+          "churn: pages not reclaimed")
+    check(sch.pager.pending == 0, "churn: maintenance left pending")
+    steps = match = finished = 0
+    diff = rel = 0.0
+    for sid, req in sch.active.items():
+        if not req.done:
+            continue
+        finished += 1
+        n, m, d, g = dense_check(model, req, probe.logits.get(sid, []),
+                                 LOGIT_REL_TOL_BF16)
+        steps, match, diff = steps + n, match + m, max(diff, d)
+        rel = max(rel, d / g) if g else rel
+    check(finished > 0, "churn: no request finished")
+    check(match >= TOKEN_MATCH_MIN_BF16 * steps, f"churn: {match} of "
+          f"{steps} decode steps match the dense decode's argmax")
+    row = dict(summary, wall_s=wall, finished_checked=finished,
+               token_match=match / max(steps, 1), max_logit_diff=diff,
+               max_logit_rel=rel,
+               scanned=len(live), worker=ws, counts=counts,
+               pager=dict(sch.pager.stats), obs=sch.obs.asdict(),
+               scan_obs=sch.scan_obs.asdict(), **probe.summary())
+    log(json.dumps({"churn": row}))
+    del sch, probe
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_phase(seed: int, device) -> dict:
+    """Phase 5, in order: kernel vs plain and timings, the float32
+    exact-token leg, the full-width serve and the churn trace."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 5)
+    t0 = time.perf_counter()
+    kern = compare_paged(rng, device, seed)
+    log(f"phase 5.1 done at {time.perf_counter() - t0:.1f} s")
+    exact = exact_token_leg(rng, device, seed)
+    log(json.dumps({"serve_float32_exact": exact}))
+    log(f"phase 5.2 done at {time.perf_counter() - t0:.1f} s")
+    full = full_width_serve(rng, device, seed)
+    log(f"phase 5.3-5.4 done at {time.perf_counter() - t0:.1f} s")
+    return dict(kernel=kern, exact=exact, **full)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the kernels rows and the serve phase's "
+                         "results to this JSON file")
     args = ap.parse_args()
 
     import torch
@@ -901,7 +1551,11 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     card, kind = card_check()
-    out = run_phases(args.seed, torch.device("cuda"))
+    out, serve = run_phases(args.seed, torch.device("cuda"))
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "kernels": out,
+                                        "serve": serve}, indent=1))
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
@@ -910,8 +1564,9 @@ def main() -> int:
     return 0
 
 
-def run_phases(seed: int, device) -> list:
-    """Phases 2-4 on ``device``; returns the rows of the kernels line."""
+def run_phases(seed: int, device):
+    """Phases 2-5 on ``device``; returns (the rows of the kernels line, the
+    serve phase's results)."""
     import numpy as np
     import torch
 
@@ -950,6 +1605,8 @@ def run_phases(seed: int, device) -> list:
                                                      policy, steps)}))
         torch.cuda.empty_cache()
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    serve = serve_phase(seed, device)
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",
@@ -971,7 +1628,17 @@ def run_phases(seed: int, device) -> list:
                     "bound_by": "bytes", "library_ms": None,
                     "searchsorted_ms": r["searchsorted_ms"],
                     "K": SCAN_K if name == "scan" else BATCH})
-    return out
+    pa = serve["kernel"]
+    out.append({"name": "paged_decode_attention", "route": "cuda",
+                "source": PA_SOURCE,
+                "replaces": "src/repro/kernels/delta_paged_attention.py:74",
+                "launches": serve["serve"]["counts"]["paged"],
+                "max_abs_err": pa["max_abs_err"], "exact": False,
+                "ms": pa["ms"], "plain_ms": pa["plain_ms"],
+                "bound_ms": pa["bound_ms"], "bound_by": "bytes",
+                "library_ms": pa["library_ms"], "B": pa["B"],
+                "tokens": pa["tokens"], "dtype": pa["dtype"]})
+    return out, serve
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ of ``repro.kernels``).
 - csrc/veb_walk.cu — the vEB walk kernels (fused multi-round, and one
   round over pre-gathered rows)
 - csrc/veb_scan.cu — the emit-cursor range-scan kernel
+- csrc/paged_attention.cu — the ΔTree-paged decode-attention kernel
 - build.py         — nvcc build at first use, ctypes loading
 - veb_search.py    — the wrappers (CUDA tensor -> kernel, CPU -> ref)
+- delta_paged_attention.py — the paged-attention wrapper, likewise
 - ref.py           — the plain PyTorch versions (CPU path, ground truth)
 - ops.py           — the multi-round walk and the scan (public API)
 """

@@ -269,3 +269,44 @@ def ref_delta_scan_fused(value: torch.Tensor, mark: torch.Tensor,
 
 
 ref_delta_scan_fused.calls = 0
+
+
+def ref_paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               seq_lens: torch.Tensor) -> torch.Tensor:
+    """ΔTree-paged GQA decode attention with the *kernel's* semantics.
+
+    q (B, QH, D); k/v_pages (NP, PS, KVH, D); block_tables (B, MAXP) int32
+    (-1 unused); seq_lens (B,) int32.  Returns (B, QH, D) in q.dtype.
+
+    Gathers each sequence's pages (a -1 entry clamps to page 0, as the
+    TPU kernel's DMA does; the mask hides it), scores in float32 scaled by
+    1/sqrt(D), masks tokens at or past ``seq_len`` with -1e30, and returns
+    ``acc / max(l, 1e-30)`` with the masked weights zeroed.  A sequence of
+    length 0 therefore gives 0, as the Pallas kernel and the CUDA kernel
+    do (``repro.kernels.ref.ref_paged_decode_attention`` gives NaN there:
+    its softmax runs over an all -inf row).
+    """
+    ref_paged_decode_attention.calls += 1
+    b, qh, d = q.shape
+    _, ps, kvh, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+    g = qh // kvh
+    bt = torch.clamp(block_tables.long(), min=0)
+    k = k_pages[bt].reshape(b, maxp * ps, kvh, d).float()
+    v = v_pages[bt].reshape(b, maxp * ps, kvh, d).float()
+    qf = q.reshape(b, kvh, g, d).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k) * (1.0 / d ** 0.5)
+    valid = (torch.arange(maxp * ps, device=q.device)[None, :]
+             < seq_lens.long()[:, None])[:, None, None, :]   # (B,1,1,S)
+    s = torch.where(valid, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1)                                       # (B,KVH,G)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, qh, d).to(q.dtype)
+
+
+ref_paged_decode_attention.calls = 0

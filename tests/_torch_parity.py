@@ -29,10 +29,13 @@ def to_port(jcfg, jt, device="cpu"):
 
 
 def assert_trees_equal(jt, tt, where="") -> None:
-    """All 16 arena arrays equal, dtypes and shapes included."""
+    """All 16 arena arrays equal, dtypes and shapes included.  ``jt`` is a
+    JAX tree or its arrays as a dict of numpy arrays (as a subprocess
+    passes them back)."""
     from repro_torch.core.deltatree import to_numpy
 
-    a, b = jax_arrays(jt), to_numpy(tt)
+    a = jt if isinstance(jt, dict) else jax_arrays(jt)
+    b = to_numpy(tt)
     assert set(a) == set(b)
     for name in a:
         assert a[name].dtype == b[name].dtype, (where, name)
@@ -53,3 +56,99 @@ def assert_cols_equal(a_cols, b_cols, names, where="") -> None:
         a, b = np_of(a), np_of(b)
         assert a.dtype == b.dtype, (where, name, a.dtype, b.dtype)
         np.testing.assert_array_equal(a, b, err_msg=f"{where}: {name}")
+
+
+def shared_npz(tmp_path_factory, name: str, make) -> dict:
+    """``make(path)`` writes an ``.npz`` once per test run, shared by every
+    pytest-xdist worker (the first worker to ask runs it under a file lock,
+    the others wait and read); returns its arrays.  For the JAX side of a
+    parity test that runs in a subprocess."""
+    import fcntl
+    import os
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    path = root / f"{name}.npz"
+    with open(root / f"{name}.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not path.exists():
+                make(path)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def prefixed(arrays: dict, prefix: str) -> dict:
+    """The entries of ``arrays`` under ``prefix/``, with it stripped."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in arrays.items() if k.startswith(prefix + "/")}
+
+
+def jax_npz(tmp_path_factory, name: str, code: str, x64: bool = True) -> dict:
+    """Run ``code`` (which fills a dict ``rec`` with numpy arrays) in a
+    subprocess, once per test run for every xdist worker (`shared_npz`),
+    and return ``rec``.  For JAX sides that need x64."""
+    import os
+
+    from _subproc import run_py
+
+    def make(path):
+        tmp = f"{path}.part.npz"
+        run_py(f"{code}\nimport numpy as _np\n_np.savez({tmp!r}, **rec)\n",
+               x64=x64, timeout=900)
+        os.replace(tmp, path)
+
+    return shared_npz(tmp_path_factory, name, make)
+
+
+# pager stats in a fixed order (the JAX and the port pager count the same)
+STAT_KEYS = ("searches", "inserts", "deletes", "hops", "flushes",
+             "maint_rebuilds", "maint_expands", "maint_merges", "combined",
+             "inline_maint")
+
+# The start of every serving scenario's JAX side: the smoke model's params
+# (recorded under ``param/`` in the port's state_dict names) and
+# ``pager_state``, which records a pager's stats, free list and arena.
+SERVE_PRELUDE = f"STAT_KEYS = {STAT_KEYS!r}\n" + r'''
+import numpy as np, jax
+from repro.configs import get_smoke_config
+from repro.models.registry import api
+from repro_torch.models.weights import jax_state_dict
+rec = {}
+def pager_state(prefix, pg):
+    rec[f"{prefix}/stats"] = np.asarray([pg.stats[k] for k in STAT_KEYS])
+    rec[f"{prefix}/free"] = np.asarray(pg.free_pages, np.int64)
+    for k, v in pg.index.state._asdict().items():
+        rec[f"{prefix}/tree/{k}"] = np.asarray(v)
+cfg = get_smoke_config("granite_8b")
+m = api(cfg)
+params = m.init_params(jax.random.PRNGKey(0))
+for k, v in jax_state_dict(cfg, jax.tree.map(np.asarray, params)).items():
+    rec["param/" + k] = np.asarray(v)
+'''
+
+
+def serve_model(rec):
+    """The port's smoke Granite with the weights a JAX side recorded under
+    ``param/``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.models.weights import load_state
+
+    cfg = get_smoke_config("granite_8b")
+    return load_state(Transformer(cfg, device="cpu", init=False),
+                      prefixed(rec, "param"))
+
+
+def check_pager(rec, prefix: str, pg) -> None:
+    """A port pager's stats, free list and 16 arena arrays equal what
+    ``pager_state(prefix, ...)`` recorded on the JAX side."""
+    np.testing.assert_array_equal(rec[f"{prefix}/stats"],
+                                  [pg.stats[k] for k in STAT_KEYS],
+                                  err_msg=f"{prefix}: pager stats")
+    np.testing.assert_array_equal(rec[f"{prefix}/free"], pg.free_pages,
+                                  err_msg=f"{prefix}: free list")
+    assert_trees_equal(prefixed(rec, f"{prefix}/tree"), pg.index.state,
+                       prefix)

@@ -1,8 +1,9 @@
 """PyTorch port on a CUDA card (``requires_cuda``; skipped without one).
 
-The CUDA kernels have no CPU mode, so these tests hold them (the walks and
-the range scan), and the whole update and scan path on the card under eager
-and deferred maintenance, against the port's plain versions on the CPU.
+The CUDA kernels have no CPU mode, so these tests hold them (the walks, the
+range scan and the paged decode attention), the whole update and scan path
+on the card under eager and deferred maintenance, and the serve path,
+against the port's plain versions on the CPU.
 This file imports torch, numpy and the port only (the card's machine has
 no jax); run it there with
 
@@ -185,3 +186,103 @@ def test_cuda_deferred_index_equals_cpu_index(cuda):
                step)
     assert pending > 0
     assert TVS.veb_scan_fused.launches == launches + 4
+
+
+def _paged_inputs(rng, device, dtype, b=8, max_len=2048):
+    """Granite-width paged decode inputs (QH 32, KVH 8, D 128, PS 16):
+    lengths in 1..max_len with a 0 and a one-page length, tables from a
+    random permutation with -1 tails, unreferenced pages scrambled."""
+    qh, kvh, d, ps = 32, 8, 128, 16
+    maxp = max_len // ps
+    lens = rng.integers(1, max_len + 1, b).astype(np.int32)
+    lens[0], lens[1] = 0, ps
+    need = -(-lens // ps)
+    n_pages = int(need.sum()) + 64
+    bt = np.full((b, maxp), -1, np.int32)
+    perm = rng.permutation(n_pages)
+    c = 0
+    for i in range(b):
+        bt[i, :need[i]] = perm[c:c + need[i]]
+        c += need[i]
+    kp = rng.standard_normal((n_pages, ps, kvh, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, kvh, d)).astype(np.float32)
+    unused = perm[c:]
+    kp[unused], vp[unused] = 1e3, -1e3
+    q = rng.standard_normal((b, qh, d)).astype(np.float32)
+    return [torch.as_tensor(x).to(device=device, dtype=dt) for x, dt in
+            ((q, dtype), (kp, dtype), (vp, dtype), (bt, torch.int32),
+             (lens, torch.int32))]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_equals_plain(cuda, dtype):
+    """The CUDA paged decode-attention kernel against its plain version on
+    the same card inputs: within 2e-5 in float32 (other summation order),
+    and in bfloat16 within 2e-5 plus one bf16 rounding step at each
+    element's magnitude (both round an f32 result); length 0 gives 0."""
+    from repro_torch.kernels.delta_paged_attention import (
+        paged_decode_attention,
+    )
+
+    args = _paged_inputs(np.random.default_rng(21), cuda, dtype)
+    launches = paged_decode_attention.launches
+    got = paged_decode_attention(*args)
+    want = TREF.ref_paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == launches + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    err = (got.float() - want.float()).abs()
+    tol = torch.full_like(err, 2e-5)
+    if dtype == torch.bfloat16:
+        mag = want.float().abs().clamp(min=2.0 ** -126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool((err <= tol).all()), float(err.max())
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_serve_engine_equals_cpu(cuda):
+    """ServeEngine on the card (float32 smoke config, lockstep lookups)
+    gives the CPU run's tokens, block tables and pager arena; every decode
+    step launches the paged kernel once per layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.delta_paged_attention import (
+        paged_decode_attention,
+    )
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.models.weights import load_state
+    from repro_torch.serving import PagerConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("granite_8b")
+    gm = Transformer(cfg, device=cuda, seed=0)
+    cm = load_state(Transformer(cfg, device="cpu", init=False),
+                    {k: v.cpu().numpy() for k, v in gm.state_dict().items()})
+    pc = PagerConfig(num_pages=64, page_size=4, max_blocks=64,
+                     tree_height=4, engine="lockstep")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 9, 3, 7)]
+    runs = []
+    for model in (cm, gm):
+        eng = ServeEngine(cfg, model, pc, max_batch=4)
+        tables = []
+        bt_fn = eng.pager.block_tables
+        eng.pager.block_tables = lambda s, n: tables.append(bt_fn(s, n)) \
+            or tables[-1]
+        launches = paged_decode_attention.launches
+        sids = [eng.submit(p, max_new=6) for p in prompts]
+        for _ in range(8):
+            eng.step()
+        runs.append(([eng.active[s].out for s in sids],
+                     [t.cpu() for t in tables], eng.pager,
+                     paged_decode_attention.launches - launches))
+    (ct, cb, cp, cl), (gt, gb, gp, gl) = runs
+    assert ct == gt
+    assert all(torch.equal(a, b) for a, b in zip(cb, gb))
+    assert cp.free_pages == gp.free_pages and cp.stats == gp.stats
+    for name, a, b in zip(TDT.DeltaTree._fields, cp.index.state,
+                          gp.index.state):
+        assert torch.equal(a, b.cpu()), name
+    assert cl == 0 and gl == cfg.num_layers * len(gb)

@@ -76,3 +76,19 @@ def test_no_wrapper_falls_back_to_plain_version():
                 names |= {n.attr for n in ast.walk(handler)
                           if isinstance(n, ast.Attribute)}
                 assert not any("ref" in n for n in names), (path, node.lineno)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """``chip_smoke.py`` exits non-zero and prints no result line where
+    CUDA is missing (here; on a machine with a card it would run)."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
