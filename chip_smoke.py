@@ -57,13 +57,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``flush()`` and the live set.  The same for 3 steps under
    ``budgeted:8``.
 5. The serve path at Granite-8B width (``repro_torch.configs.granite_8b``):
-   ``paged_decode_attention`` against its plain version at Granite shapes
-   in float32 and bf16 (lengths in 1..2048 with a 0 and a one-page
-   length, -1 tails, scrambled unreferenced pages; within 2e-5, plus one
-   bf16 rounding step in bf16), timed in bf16 at the served batch (B = 8, ~1 k tokens)
-   and at decode_32k's batch at 4096 tokens beside its plain version,
-   SDPA with the gather of each sequence's pages (a yardstick the port
-   never calls) and the bytes bound; then a float32 Granite cut to 4
+   ``paged_decode_attention`` (a split-K kernel over chunks of pages, then
+   a merge) against its plain version in float32 and bf16 at Granite
+   shapes, with lengths on the split plan's chunk boundaries (0, 1, one
+   page, one chunk, one chunk + 1 token, a partial last page in the last
+   chunk, the full MAXP), on a batch the plan does not split, and at the
+   smoke config's narrow heads (-1 tails, scrambled unreferenced pages;
+   within 2e-5, plus one bf16 rounding step in bf16); nvcc's register,
+   shared-memory and spill report of its kernels; timed in bf16 at the
+   served batch (B = 8, ~1 k tokens), at decode_32k's batch at 4096
+   tokens and at one 32 k context beside its plain version, SDPA with
+   the gather of each sequence's pages (a yardstick the port never
+   calls) and the bytes bound; then a float32 Granite cut to 4
    layers whose ``ServeEngine`` tokens must equal the dense decode's; the
    36-layer bf16 model (weights drawn on the card from the seed) serving
    16 requests with 8 live lanes, the index held to the pager's mapping
@@ -120,6 +125,8 @@ PA_TOL = 2e-5    # kernel vs plain in float32, max abs (`paged_err`)
 PA_CHECK_B, PA_CHECK_MAX = 8, 2048   # check batch, lengths drawn in 1..2048
 PA_SERVED = (8, 1024)                # timed: the served batch, ~1 k tokens
 PA_LONG = (64, 4096)                 # timed: decode_32k's batch, shorter
+PA_ONE_LONG = (1, 32768)             # timed: one 32 k context
+PA_NARROW = (4, 2, 16, 4)            # (QH, KVH, D, PS) of the smoke config
 EXACT_LAYERS = 4                     # the float32 exact-token leg's depth
 EXACT_REQUESTS, EXACT_PROMPT, EXACT_NEW = 4, (16, 256), 8
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_LIVE = 16, (128, 1024), 32, 8
@@ -938,17 +945,19 @@ def relaxed_path(keys, rng, device, policy: str, steps: int) -> dict:
 
 
 def paged_case(gen, rng, device, dtype, lens, scramble: bool = True,
-               spare: int = 64):
-    """Paged decode inputs at Granite width (QH 32, KVH 8, D 128, PS 16):
-    block tables from a random permutation of the pages with -1 tails,
-    ``spare`` unreferenced pages (scrambled to +-1e3 when asked), K/V and q
-    drawn on the card.  Returns (q, k_pages, v_pages, tables, lens)."""
+               spare: int = 64, shape=None):
+    """Paged decode inputs at Granite width (QH 32, KVH 8, D 128, PS 16)
+    or at ``shape`` = (QH, KVH, D, PS): block tables from a random
+    permutation of the pages with -1 tails, ``spare`` unreferenced pages
+    (scrambled to +-1e3 when asked), K/V and q drawn on the card.  Returns
+    (q, k_pages, v_pages, tables, lens)."""
     import numpy as np
     import torch
 
     from repro_torch.configs.granite_8b import CONFIG
 
-    ps, kvh, d = 16, CONFIG.num_kv_heads, CONFIG.head_dim
+    qh, kvh, d, ps = shape or (CONFIG.num_heads, CONFIG.num_kv_heads,
+                               CONFIG.head_dim, 16)
     b = lens.size
     need = -(-lens // ps)
     maxp = max(int(need.max()), 1)
@@ -970,7 +979,7 @@ def paged_case(gen, rng, device, dtype, lens, scramble: bool = True,
                                  device=device)
         kp[unused] = 1e3
         vp[unused] = -1e3
-    q = draw((b, CONFIG.num_heads, d))
+    q = draw((b, qh, d))
     return (q, kp, vp, torch.as_tensor(bt, device=device),
             torch.as_tensor(lens.astype(np.int32), device=device))
 
@@ -1022,44 +1031,85 @@ def sdpa_paged(q, kp, vp, bt, lens):
     return out[:, :, 0]
 
 
+def paged_check_cases(rng, sms: int) -> list:
+    """(name, shape or None for Granite, lengths) of the kernel-vs-plain
+    check: lengths on the split plan's boundaries at Granite width (0, 1,
+    one page, exactly one chunk, one chunk + 1 token, a partial last page
+    inside the last chunk, the longest at full MAXP, one drawn), a batch
+    short enough that the plan does not split, and the smoke config's
+    narrow heads with their own chunk boundaries."""
+    import numpy as np
+
+    from repro_torch.kernels.delta_paged_attention import split_plan
+
+    ps = 16
+    splits, pps = split_plan(PA_CHECK_B, 8, PA_CHECK_MAX // ps, sms)
+    check(splits > 1, f"the check batch does not split ({splits})")
+    chunk = pps * ps
+    split = np.array([0, 1, ps, chunk, chunk + 1, PA_CHECK_MAX - 7,
+                      PA_CHECK_MAX, rng.integers(1, PA_CHECK_MAX + 1)])
+    unsplit = np.array([0, 1, ps, ps + 1, 100, 128,
+                        *rng.integers(1, 129, 2)])
+    check(split_plan(PA_CHECK_B, 8, 128 // ps, sms)[0] == 1,
+          "the short batch splits")
+    nps = PA_NARROW[3]
+    nplan = split_plan(PA_CHECK_B, PA_NARROW[1], 64 // nps, sms)
+    nchunk = nplan[1] * nps
+    narrow = np.array([0, 1, nps, nchunk, nchunk + 1, 61, 64,
+                       rng.integers(1, 65)])
+    return [("split", None, split), ("unsplit", None, unsplit),
+            ("narrow", PA_NARROW, narrow)]
+
+
 def compare_paged(rng, device, seed: int) -> dict:
-    """Phase 5.1: the paged kernel against its plain version at Granite
-    shapes in float32 and bfloat16 (lengths in 1..2048 with a 0 and a
-    one-page length, -1 tails, scrambled unreferenced pages), then timed
-    in bfloat16 at the served batch and at decode_32k's batch beside the
-    plain version, the SDPA yardstick and the bytes bound."""
+    """Phase 5.1: the paged kernel against its plain version in float32
+    and bfloat16 on the split-boundary, unsplit and narrow cases
+    (`paged_check_cases`; -1 tails, scrambled unreferenced pages), then
+    timed in bfloat16 at the served batch, decode_32k's batch and one
+    32 k context beside the plain version, the SDPA yardstick and the
+    bytes bound.  Also keeps nvcc's register / shared-memory / spill
+    report of the kernel's source."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.build import resource_usage
     from repro_torch.kernels.delta_paged_attention import (
         paged_decode_attention,
+        split_plan,
     )
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    usage = resource_usage(Path(PA_SOURCE).name)
+    for line in ptxas_lines(usage):
+        log(f"ptxas: {line}")
     gen = torch.Generator(device=device).manual_seed(seed)
     errs = {}
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
-        lens = rng.integers(1, PA_CHECK_MAX + 1, PA_CHECK_B)
-        lens[0], lens[1] = 0, 16
-        args = paged_case(gen, rng, device, dtype, lens)
-        got = paged_decode_attention(*args)
-        want = ref.ref_paged_decode_attention(*args)
-        torch.cuda.synchronize()
-        err, ok = paged_err(got, want)
-        check(bool(torch.isfinite(got).all()), f"paged kernel: non-finite "
-                                               f"output ({name})")
-        check(bool((got[0] == 0).all()), "paged kernel: length 0 is not 0")
-        check(ok, f"paged kernel != plain ({name}): max abs err {err}")
-        log(f"paged_decode_attention equals its plain version in {name}: "
-            f"max abs err {err} (tolerance {PA_TOL}"
-            f"{' + one bf16 rounding step' if name == 'bfloat16' else ''}), "
-            f"largest |out| {float(want.float().abs().max())}, lengths "
-            f"{lens.tolist()}")
-        errs[name] = err
+    for case, shape, lens in paged_check_cases(rng, sms):
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            args = paged_case(gen, rng, device, dtype, lens, shape=shape)
+            got = paged_decode_attention(*args)
+            want = ref.ref_paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            err, ok = paged_err(got, want)
+            where = f"{case}, {name}"
+            check(bool(torch.isfinite(got).all()), f"paged kernel: non-finite "
+                                                   f"output ({where})")
+            check(bool((got[0] == 0).all()), f"paged kernel: length 0 is not "
+                                             f"0 ({where})")
+            check(ok, f"paged kernel != plain ({where}): max abs err {err}")
+            plan = split_plan(lens.size, args[1].shape[2], args[3].shape[1],
+                              sms)
+            log(f"paged_decode_attention equals its plain version ({where}, "
+                f"plan {plan}): max abs err {err} (tolerance {PA_TOL}"
+                f"{' + one bf16 rounding step' if name == 'bfloat16' else ''}"
+                f"), largest |out| {float(want.float().abs().max())}, "
+                f"lengths {lens.tolist()}")
+            errs[f"{case}/{name}"] = err
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
     rows = []
-    for b, tokens in (PA_SERVED, PA_LONG):
+    for b, tokens in (PA_SERVED, PA_LONG, PA_ONE_LONG):
         lens = np.full(b, tokens)
         if b == PA_SERVED[0]:    # the served batch: lengths around 1 k
             lens = rng.integers(tokens // 2, 3 * tokens // 2 + 1, b)
@@ -1072,6 +1122,7 @@ def compare_paged(rng, device, seed: int) -> dict:
         nbytes = paged_bytes(args[0], args[1], args[3], args[4])
         r = dict(B=b, tokens=int(lens.sum()), max_len=int(lens.max()),
                  dtype="bfloat16",
+                 plan=split_plan(b, args[1].shape[2], args[3].shape[1], sms),
                  ms=cuda_ms(lambda: paged_decode_attention(*args), 20, flush),
                  plain_ms=cuda_ms(lambda: ref.ref_paged_decode_attention(
                      *args), 3, flush),
@@ -1086,13 +1137,35 @@ def compare_paged(rng, device, seed: int) -> dict:
         del args, got, lib, want
         torch.cuda.empty_cache()
     return dict(rows[0], max_abs_err=max(errs.values()), errs=errs,
-                cells=rows)
+                cells=rows, ptxas=usage)
+
+
+def ptxas_lines(usage: str) -> list:
+    """The lines of nvcc's ``-Xptxas -v`` report for the instantiations the
+    Granite serve path runs (bf16 and float32 at D = 128, G = 4: 16 and 32
+    lanes a row) and the merge kernels: each entry's name, then its
+    registers, shared memory and spill lines."""
+    keep = ("13__nv_bfloat16Li16ELi4E", "fLi32ELi4E",
+            "paged_decode_merge_kernel")
+    out, on = [], False
+    for line in usage.splitlines():
+        if "Compiling entry function" in line:
+            on = any(k in line for k in keep)
+        if on and ("Compiling entry" in line or "Used" in line
+                   or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
+# the paged decode attention's two kernels (csrc/paged_attention.cu)
+PAGED_KERNELS = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 
 
 def device_split(prof, steps: int) -> dict:
     """Device time (ms) a step of a trace over ``steps`` scheduler steps,
-    by kind: the paged kernel, the matrix products, everything else, and
-    their sum (one stream, so the sum is the device's busy time)."""
+    by kind: the paged kernels (the split-K pass and the merge), the matrix
+    products, everything else, and their sum (one stream, so the sum is
+    the device's busy time)."""
     import torch
 
     out = {"paged": 0.0, "matmul": 0.0, "other": 0.0}
@@ -1100,7 +1173,7 @@ def device_split(prof, steps: int) -> dict:
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = evt.name
-        kind = ("paged" if "paged_decode_kernel" in name else
+        kind = ("paged" if any(k in name for k in PAGED_KERNELS) else
                 "matmul" if any(k in name for k in ("nvjet", "gemm", "splitK",
                                                      "cutlass", "xmma"))
                 else "other")

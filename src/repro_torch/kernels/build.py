@@ -81,6 +81,24 @@ def _compile(source: str) -> Path:
     return out
 
 
+def resource_usage(source: str) -> str:
+    """``nvcc -Xptxas -v``'s report for ``source``: each kernel's registers,
+    shared memory and spills.  Compiles once more into a private
+    directory under the build directory and removes it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+           os.path.join(tmp, "usage.so"), str(CSRC / source)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed on {source} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded library for ``source`` (built on first use).  Builds of
     different sources may run in parallel threads; the lock only guards

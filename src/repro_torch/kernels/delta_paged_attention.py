@@ -5,18 +5,23 @@ path's kernel).
 The pager resolves each sequence's (seq, logical block) -> page mapping
 with a wait-free ΔTree lookup into a block table; this kernel reads only
 the pages a sequence owns.  The CUDA kernel lives in
-``csrc/paged_attention.cu`` (built at first use, `kernels.build`); the
-wrapper checks its inputs, allocates the output and launches on the
-current stream.  A tensor on the CPU goes to the plain version
+``csrc/paged_attention.cu`` (built at first use, `kernels.build`): a
+split-K kernel over chunks of each sequence's pages, then a merge of the
+chunks' partial softmax states.  The wrapper checks its inputs, plans the
+split from the shapes and the card's SM count (`split_plan`; it never
+reads a length on the host), allocates the output and the float32
+scratch, and launches on the current stream.  A tensor on the CPU goes to the plain version
 `kernels.ref.ref_paged_decode_attention`; a CUDA tensor goes to the kernel,
 and a launch the card refuses raises — there is no fallback from one to the
-other.  ``paged_decode_attention.launches`` counts kernel launches: an
-empty batch launches nothing, and a refused launch is not counted.
+other.  ``paged_decode_attention.launches`` counts calls that launched the kernel
+(one a call, whether the plan adds the merge or not): an empty batch
+launches nothing, and a refused launch is not counted.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,8 +29,48 @@ from repro_torch.kernels import ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P, _P]
+_ARGS = [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P, _P, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# csrc/paged_attention.cu's constants
+WARPS = 4             # warps a block, each with its own ring of pages
+STAGES = 3            # pages a warp's ring holds
+MAX_G = 8             # query heads a KV head
+SMEM_LIMIT = 232448   # dynamic shared memory a block may opt in to (227 KB)
+# the split plan: blocks to aim for per SM, and pages each warp should get
+BLOCKS_PER_SM = 2
+MIN_PAGES_PER_WARP = 2
+
+
+def split_plan(b: int, kvh: int, maxp: int, sm_count: int) -> tuple[int, int]:
+    """(splits, pages_per_split) for a (B, KVH, MAXP) call on a card with
+    ``sm_count`` SMs: split each sequence's MAXP logical pages into chunks
+    so that the grid holds about ``BLOCKS_PER_SM`` blocks an SM, but give
+    no chunk fewer than ``MIN_PAGES_PER_WARP`` pages a warp.  A function of
+    shapes only, never of the lengths, so planning costs no host sync.
+    Chunk s covers pages [s * pps, (s + 1) * pps); splits * pps >= MAXP and
+    no chunk is empty of logical pages."""
+    maxp = max(maxp, 1)
+    want = -(-BLOCKS_PER_SM * sm_count // max(b * kvh, 1))
+    most = max(1, maxp // (WARPS * MIN_PAGES_PER_WARP))
+    splits = max(1, min(want, most))
+    pps = -(-maxp // splits)
+    return -(-maxp // pps), pps
+
+
+def smem_bytes(ps: int, d: int, g: int, elt: int) -> int:
+    """The kernel's dynamic shared memory a block: each warp's ring of
+    ``STAGES`` K/V pages of one head plus its scores and rescale factors
+    (16-byte padded), then the area where the warps merge their states;
+    G rounds up to a power of two."""
+    gp = 1 << (g - 1).bit_length()
+    warp = STAGES * 2 * ps * d * elt + -(-(ps * gp + gp) * 4 // 16) * 16
+    return WARPS * warp + WARPS * (2 * gp + gp * d) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _kernel_fn(dtype: torch.dtype):
@@ -60,6 +105,27 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens) -> None:
             or seq_lens.shape != (b,):
         raise ValueError("paged_decode_attention: block_tables must be "
                          "(B, MAXP) and seq_lens (B,)")
+    if q.dtype not in _SUFFIX:
+        return                       # only the plain version takes it
+    # the CUDA kernel's limits, held on every device alike
+    row = d * q.element_size()
+    if row < 32 or row > 512 or row & (row - 1):
+        raise ValueError(f"paged_decode_attention: a K/V row of {row} bytes; "
+                         f"the kernel takes D * element size a power of two "
+                         f"from 32 to 512 bytes")
+    g = qh // kvh
+    if g > MAX_G:
+        raise ValueError(f"paged_decode_attention: {g} query heads a KV "
+                         f"head; the kernel takes at most {MAX_G}")
+    smem = smem_bytes(k_pages.shape[1], d, g, q.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged_decode_attention: {smem} bytes of shared "
+                         f"memory a block (page size {k_pages.shape[1]}, D "
+                         f"{d}); the kernel has at most {SMEM_LIMIT}")
+    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"paged_decode_attention: {name} is not "
+                             f"16-byte aligned")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -96,19 +162,26 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     b, qh, d = q.shape
     np_, ps, kvh, _ = k_pages.shape
     maxp = block_tables.shape[1]
+    g = qh // kvh
     out = torch.empty_like(q)
     if b == 0:
         return out
+    splits, pps = split_plan(b, kvh, maxp, _sm_count(dev.index))
+    part = (torch.empty(b * kvh * splits * g * (d + 2), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
     fn = _kernel_fn(q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  block_tables.data_ptr(), seq_lens.data_ptr(), b, np_, ps, kvh,
-                 d, qh // kvh, maxp, 1.0 / d ** 0.5, out.data_ptr(), stream)
+                 d, g, maxp, splits, pps, 1.0 / d ** 0.5,
+                 None if part is None else part.data_ptr(), out.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed "
-                           f"(cudaError {err}; shared memory needs at most "
-                           f"48 KB and PS * D at most 4096)")
+                           f"(cudaError {err}; {splits} splits of {pps} "
+                           f"pages, {smem_bytes(ps, d, g, q.element_size())} "
+                           f"bytes of shared memory a block)")
     paged_decode_attention.launches += 1
     return out
 

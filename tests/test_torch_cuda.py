@@ -188,14 +188,17 @@ def test_cuda_deferred_index_equals_cpu_index(cuda):
     assert TVS.veb_scan_fused.launches == launches + 4
 
 
-def _paged_inputs(rng, device, dtype, b=8, max_len=2048):
+def _paged_inputs(rng, device, dtype, b=8, max_len=2048, lens=None):
     """Granite-width paged decode inputs (QH 32, KVH 8, D 128, PS 16):
-    lengths in 1..max_len with a 0 and a one-page length, tables from a
-    random permutation with -1 tails, unreferenced pages scrambled."""
+    lengths in 1..max_len with a 0 and a one-page length (or ``lens``),
+    tables from a random permutation with -1 tails, unreferenced pages
+    scrambled."""
     qh, kvh, d, ps = 32, 8, 128, 16
     maxp = max_len // ps
-    lens = rng.integers(1, max_len + 1, b).astype(np.int32)
-    lens[0], lens[1] = 0, ps
+    if lens is None:
+        lens = rng.integers(1, max_len + 1, b).astype(np.int32)
+        lens[0], lens[1] = 0, ps
+    lens = np.asarray(lens, np.int32)
     need = -(-lens // ps)
     n_pages = int(need.sum()) + 64
     bt = np.full((b, maxp), -1, np.int32)
@@ -220,25 +223,57 @@ def test_cuda_paged_attention_equals_plain(cuda, dtype):
     """The CUDA paged decode-attention kernel against its plain version on
     the same card inputs: within 2e-5 in float32 (other summation order),
     and in bfloat16 within 2e-5 plus one bf16 rounding step at each
-    element's magnitude (both round an f32 result); length 0 gives 0."""
+    element's magnitude (both round an f32 result); length 0 gives 0.
+    Drawn lengths, then lengths on the split plan's chunk boundaries
+    (one chunk, one chunk + 1 token, a partial last page in the last
+    chunk, the full MAXP, 0 and 1), then a batch the plan does not split;
+    a call counts one launch however many kernels it runs."""
     from repro_torch.kernels.delta_paged_attention import (
         paged_decode_attention,
+        split_plan,
     )
 
-    args = _paged_inputs(np.random.default_rng(21), cuda, dtype)
-    launches = paged_decode_attention.launches
-    got = paged_decode_attention(*args)
-    want = TREF.ref_paged_decode_attention(*args)
-    torch.cuda.synchronize()
-    assert paged_decode_attention.launches == launches + 1
-    assert got.dtype == dtype and got.shape == args[0].shape
-    err = (got.float() - want.float()).abs()
-    tol = torch.full_like(err, 2e-5)
-    if dtype == torch.bfloat16:
-        mag = want.float().abs().clamp(min=2.0 ** -126)
-        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    assert bool((err <= tol).all()), float(err.max())
-    assert bool((got[0] == 0).all())
+    rng = np.random.default_rng(21)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, pps = split_plan(8, 8, 2048 // 16, sms)
+    assert splits > 1
+    chunk = pps * 16
+    assert split_plan(8, 8, 128 // 16, sms)[0] == 1
+    cases = [(2048, None),
+             (2048, [0, 1, 16, chunk, chunk + 1, 2041, 2048, 700]),
+             (128, [0, 1, 16, 17, 100, 128, 5, 64])]
+    for max_len, lens in cases:
+        args = _paged_inputs(rng, cuda, dtype, max_len=max_len, lens=lens)
+        launches = paged_decode_attention.launches
+        got = paged_decode_attention(*args)
+        want = TREF.ref_paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == launches + 1
+        assert got.dtype == dtype and got.shape == args[0].shape
+        err = (got.float() - want.float()).abs()
+        tol = torch.full_like(err, 2e-5)
+        if dtype == torch.bfloat16:
+            mag = want.float().abs().clamp(min=2.0 ** -126)
+            tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool((err <= tol).all()), (max_len, lens, float(err.max()))
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_paged_attention_smem_matches_the_wrapper(cuda):
+    """The wrapper's shared-memory formula (its `_check` limit) equals the
+    kernel's own, so the limit it holds on the CPU is the card's."""
+    import ctypes
+
+    from repro_torch.kernels import delta_paged_attention as TPA
+    from repro_torch.kernels.build import library
+
+    fn = library("paged_attention.cu").paged_decode_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    for ps, d, g, elt in ((16, 128, 4, 2), (16, 128, 4, 4), (4, 16, 2, 4),
+                          (8, 64, 8, 2), (32, 256, 3, 2), (1, 32, 1, 4)):
+        assert fn(ps, d, g, elt) == TPA.smem_bytes(ps, d, g, elt)
 
 
 @pytest.mark.requires_cuda

@@ -9,8 +9,11 @@ page there) and 1e-2 in bfloat16 (inputs are the same bf16 values; the
 output is rounded to bf16, whose step at |x| in [1, 2) is 2**-7, so a
 float32 difference of a few ulps can flip one rounding).  The JAX side
 runs once per module.  The CUDA kernel itself is held against this plain
-version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``); its
+split plan and the limits the wrapper holds for it are tested here.
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from repro.kernels.delta_paged_attention import paged_decode_attention as j_pda
 from repro.kernels.ref import ref_paged_decode_attention as j_ref
 from repro_torch.kernels import ref as TREF
+from repro_torch.kernels import delta_paged_attention as TPA
 from repro_torch.kernels.delta_paged_attention import paged_decode_attention
 
 SHAPES = [
@@ -156,3 +160,75 @@ def test_wrapper_rejects_bad_inputs():
         paged_decode_attention(q, kp, vp, bt[:1], lens)
     with pytest.raises(ValueError):
         paged_decode_attention(q[:, :3], kp, vp, bt, lens)   # 3 % 2 heads
+    # the CUDA kernel's limits, held on the CPU too: a K/V row of D *
+    # element size bytes must be a power of two from 32 to 512 ...
+    for d in (4, 48, 256):                 # 16, 192 and 1024 bytes in f32
+        with pytest.raises(ValueError, match="K/V row"):
+            paged_decode_attention(q.new_zeros(2, 4, d),
+                                   kp.new_zeros(kp.shape[:3] + (d,)),
+                                   vp.new_zeros(vp.shape[:3] + (d,)), bt, lens)
+    # ... at most 8 query heads a KV head ...
+    with pytest.raises(ValueError, match="query heads a KV head"):
+        paged_decode_attention(q.new_zeros(2, 18, 64), kp, vp, bt, lens)
+    # ... a block's rings of pages within 227 KB of shared memory ...
+    big = kp.new_zeros(kp.shape[0], 64, 2, 128)
+    with pytest.raises(ValueError, match="shared"):
+        paged_decode_attention(q.new_zeros(2, 4, 128), big, big, bt, lens)
+    # ... and q, k_pages and v_pages 16-byte aligned
+    off = torch.zeros(kp.numel() + 1)[1:].view(kp.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_attention(q, off, vp, bt, lens)
+
+
+# (B, KVH, MAXP, SMs): the served batch (8 lanes, ~1 k tokens, Granite's 8
+# KV heads), decode_32k's batch at 4096 tokens, one 32 k context, tiny
+# shapes, MAXP = 1, and a smaller card
+PLANS = [(8, 8, 97, 132), (64, 8, 256, 132), (1, 8, 2048, 132),
+         (2, 2, 3, 132), (1, 1, 5, 132), (4, 8, 1, 132), (64, 8, 1, 132),
+         (3, 8, 700, 16)]
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=lambda p: "x".join(map(str, p)))
+def test_split_plan_covers_every_page_once(plan):
+    """Every logical page below MAXP lies in exactly one chunk, no chunk is
+    empty of logical pages, at least one split; the plan reads shapes and
+    the SM count only, so no length is read on the host."""
+    b, kvh, maxp, sms = plan
+    splits, pps = TPA.split_plan(b, kvh, maxp, sms)
+    assert splits >= 1 and pps >= 1
+    owner = np.full(maxp, -1)
+    for s in range(splits):
+        chunk = np.arange(s * pps, min((s + 1) * pps, maxp))
+        assert chunk.size > 0, (s, splits, pps)
+        assert (owner[chunk] == -1).all()
+        owner[chunk] = s
+    assert (owner >= 0).all()
+    assert list(inspect.signature(TPA.split_plan).parameters) == [
+        "b", "kvh", "maxp", "sm_count"]
+    assert TPA.split_plan(b, kvh, maxp, sms) == (splits, pps)
+    # a chunk gives each warp at least its share of pages, unless MAXP
+    # itself is shorter; the grid fills the card twice where pages allow
+    assert pps >= min(maxp, TPA.WARPS * TPA.MIN_PAGES_PER_WARP)
+    if b * kvh * (maxp // (TPA.WARPS * TPA.MIN_PAGES_PER_WARP)) \
+            >= TPA.BLOCKS_PER_SM * sms:
+        assert b * kvh * splits >= 2 * sms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 8, 128, 16), (4, 2, 16, 4)],
+                         ids=["granite_8b", "granite_smoke"])
+def test_kernel_limits_admit_the_served_shapes(shape, dtype):
+    """The shapes the serve path runs (Granite-8B and its smoke config,
+    both dtypes) pass the kernel's limits; Granite's bf16 block fits two
+    to an SM."""
+    qh, kvh, d, ps = shape
+    q = torch.zeros(2, qh, d, dtype=dtype)
+    kp = torch.zeros(6, ps, kvh, d, dtype=dtype)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
+    lens = torch.full((2,), 2, dtype=torch.int32)
+    out = paged_decode_attention(q, kp, kp, bt, lens)
+    assert out.shape == q.shape
+    smem = TPA.smem_bytes(ps, d, qh // kvh, q.element_size())
+    assert smem <= TPA.SMEM_LIMIT
+    if shape[0] == 32 and dtype == torch.bfloat16:
+        assert 2 * smem <= TPA.SMEM_LIMIT
