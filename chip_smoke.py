@@ -26,14 +26,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    2**12 lanes that mix sparse, dense, empty (hi <= start) and
    past-the-last-key bands, bands that start just below tombstoned keys,
    sentinel lanes and per-lane roots at non-root ΔNodes, at ``max_out`` 16
-   and 128 and with a round cap that truncates lanes: all four outputs must
-   be equal exactly.  Then timed at K = 512 (``benchmarks/scan_sweep.py
-   --full``'s batch) for sparse / dense bands x ``max_out`` 16 / 128, beside
-   the plain version, the bytes bound (distinct router, child-id and mark
-   bytes the scan reads, inputs and outputs, over 3.35 TB/s) and a yardstick
-   (``torch.searchsorted`` over the sorted live keys plus a ``max_out``-wide
-   gather: the same rows on a tree without tombstones; the port never calls
-   it).
+   and 128 and with two round caps of both parities that truncate lanes
+   (inside VERIFY and inside FIND passes): all four outputs must be equal
+   exactly; the same on a height-3 tree whose paths run deeper than the
+   kernel's 32-entry path stack (``tests/_torch_parity.deep_tree``'s
+   tree).  nvcc's register, shared-memory and spill report of both scan
+   instantiations.  Then timed at K = 512 (``benchmarks/scan_sweep.py
+   --full``'s batch) for sparse / dense bands x ``max_out`` 16 / 128,
+   beside the design it replaced (``SIMPLE_SCAN_MS``), the plain version,
+   the bytes bound (distinct router, child-id and mark bytes the scan
+   reads, inputs and outputs, over 3.35 TB/s) and a yardstick
+   (``torch.searchsorted`` over the sorted live keys plus a
+   ``max_out``-wide gather: the same rows on a tree without tombstones;
+   the port never calls it).
 3. The main path at the size of the paper's Fig. 12 big tree
    (``benchmarks/fig12_big_tree.py`` with ``benchmarks/common.py``
    ``backend_kwargs``): ``make_index("deltatree", engine="lockstep")`` over
@@ -113,7 +118,19 @@ SCAN_K = 512               # benchmarks/scan_sweep.py --full batch
 SCAN_CHECK_K = 2 ** 12     # lanes for the scan kernel-vs-plain comparison
 SCAN_MAX_OUT = (16, 128)   # scan_sweep.py --full k_list
 DENSITY_FILL = {"sparse": 0.25, "dense": 4.0}   # scan_sweep.py
-TRUNCATING_ROUNDS = 300    # a scan round cap below a dense lane's need
+TRUNCATING_ROUNDS = 300    # scan round caps below a dense lane's need: this
+                           # and TRUNCATING_ROUNDS + 1, so cuts land in both
+                           # pass kinds
+DEEP_KEYS = 600            # ascending inserts of the deep-path scan check
+# The scan kernel's times in the timed cells before its redesign (one
+# thread a lane, every pass walked from the root; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside each cell's time now
+SIMPLE_SCAN_MS = {
+    ("set int32", "sparse", 16): 0.1322, ("set int32", "sparse", 128): 0.6650,
+    ("set int32", "dense", 16): 0.3028, ("set int32", "dense", 128): 2.1023,
+    ("map int64", "sparse", 16): 0.1604, ("map int64", "sparse", 128): 0.8184,
+    ("map int64", "dense", 16): 0.3461, ("map int64", "dense", 128): 2.6014,
+}
 DEFERRED_STEPS = 10
 BUDGETED_STEPS = 3
 CSRC = "src/repro_torch/kernels/csrc"
@@ -553,7 +570,8 @@ def compare_scan(cfg, t, n_keys: int, sorted_keys, rng, device, flush,
     st, hi, roots, n_tomb = check_lanes(cfg, t, n_keys, rng, device)
     sp, hp = pack_bands(cfg, st, hi, device)
     err = 0
-    for max_out, cap in ((16, None), (128, None), (128, TRUNCATING_ROUNDS)):
+    for max_out, cap in ((16, None), (128, None), (128, TRUNCATING_ROUNDS),
+                         (128, TRUNCATING_ROUNDS + 1)):
         cap = cap or scan_round_cap(h, cfg.max_dnodes, max_out)
         args = (t.value, t.mark, t.child, roots, sp, hp)
         kw = dict(height=h, max_out=max_out, pmask=cfg.pmask, max_rounds=cap)
@@ -608,6 +626,7 @@ def compare_scan(cfg, t, n_keys: int, sorted_keys, rng, device, flush,
             check(torch.equal(n_replay, got[1]), "scan byte replay diverged")
             r = dict(mode=mode, density=density, max_out=max_out, K=SCAN_K,
                      ms=cuda_ms(kern, 10, flush),
+                     simple_ms=SIMPLE_SCAN_MS[(mode, density, max_out)],
                      plain_ms=cuda_ms(plain, 2, flush), bytes=nbytes,
                      bound_ms=bound_ms(nbytes), err=e,
                      searchsorted_ms=cuda_ms(yardstick, 10, flush),
@@ -618,6 +637,65 @@ def compare_scan(cfg, t, n_keys: int, sorted_keys, rng, device, flush,
     return dict(err=err, rows=rows)
 
 
+def deep_scan_check(payload_bits: int, device) -> int:
+    """Phase 2, the scan kernel on paths deeper than its path stack (32
+    ΔNodes): a height-3 tree after ``DEEP_KEYS`` ascending inserts in
+    batches of 50 (each batch hangs below a longer chain of ΔNodes; built
+    on the CPU, then moved to the card), 256 lanes with bands among the
+    deepest keys, equal to the plain version at the full cap and at caps
+    that cut lanes below the stack.  The tree is
+    ``tests/_torch_parity.deep_tree``'s, which the CPU model of the
+    kernel's loop and the card tests scan too.  Returns the deepest
+    path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import deltatree as DT
+    from repro_torch.core.layout import KEY_MAX as DOMAIN_MAX
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import veb_search as VS
+
+    cfg = DT.TreeConfig(height=3, max_dnodes=4096, buf_cap=8,
+                        payload_bits=payload_bits, engine="lockstep")
+    t = DT.bulk_build(cfg, np.arange(1, 5, dtype=np.int32),
+                      np.arange(1, 5) if payload_bits else None, device="cpu")
+    for s in range(0, DEEP_KEYS, 50):
+        keys = np.arange(10 + s, 60 + s, dtype=np.int32)
+        t, _, _ = DT.update_batch(cfg, t, np.ones(50, np.int32), keys,
+                                  keys % 97)
+    dels = np.arange(DEEP_KEYS - 30, DEEP_KEYS + 10, 3, dtype=np.int32)
+    t, _, _ = DT.update_batch(cfg, t, np.full(dels.size, 2, np.int32), dels)
+    t = DT.from_numpy(cfg, DT.to_numpy(t), device)
+    rng = np.random.default_rng(payload_bits)
+    k = 256
+    st = rng.integers(DEEP_KEYS - 40, DEEP_KEYS, k).astype(np.int32)
+    hi = (st + rng.integers(5, 80, k)).astype(np.int32)
+    st[0], hi[0] = 0, DOMAIN_MAX
+    sp = cfg.qpack(torch.as_tensor(st, device=device)).contiguous()
+    hp = cfg.qpack(torch.as_tensor(hi, device=device)).contiguous()
+    roots = t.root.expand(k).contiguous()
+    depth = ref.ref_delta_walk_fused(t.value, t.child, roots, sp, height=3,
+                                     max_rounds=10_000)[3]
+    check(int(depth[1:].min()) > 32, "the deep-path check's paths fit the "
+                                     "path stack")
+    for cap in (10_000, 37, 501, 1000):
+        args = (t.value, t.mark, t.child, roots, sp, hp)
+        kw = dict(height=3, max_out=16, pmask=cfg.pmask, max_rounds=cap)
+        got = VS.veb_scan_fused(*args, **kw)
+        want = ref.ref_delta_scan_fused(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        check(err == 0, f"veb_scan_fused != plain on deep paths (payload "
+                        f"bits {payload_bits}, cap {cap})")
+        log(f"deep paths (height 3, payload bits {payload_bits}): "
+            f"veb_scan_fused equals its plain version on {k} lanes, cap "
+            f"{cap}: paths {int(depth.min())}-{int(depth.max())} ΔNodes, "
+            f"emitted {int(got[1].sum())}, lanes at the cap "
+            f"{int((got[2] == cap).sum())}")
+    return int(depth.max())
+
+
 def compare_kernels(keys, rng, device, flush) -> dict:
     """Phase 2.  Returns per-kernel rows for the result line (walks timed
     at the main path's batch of 1024, the scan at K = 512) and prints the
@@ -626,10 +704,16 @@ def compare_kernels(keys, rng, device, flush) -> dict:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import veb_search as VS
+    from repro_torch.kernels.build import resource_usage
 
     rows = {}
     scan = []
     sorted_keys = None
+    usage = ptxas_lines(resource_usage(Path(SCAN_SOURCE).name),
+                        ("scan_fused_kernel",))
+    for line in usage:
+        log(f"ptxas: {line}")
+    deep = [deep_scan_check(bits, device) for bits in (0, 12)]
     for bits in (0, 12):
         mode = "map int64" if bits else "set int32"
         cfg, t = churned_tree(keys, bits, rng, device)
@@ -699,7 +783,8 @@ def compare_kernels(keys, rng, device, flush) -> dict:
     cell = next(r for r in scan[0]["rows"]
                 if r["density"] == "dense" and r["max_out"] == 128)
     rows["scan"] = dict(cell, err=max(x["err"] for x in scan),
-                        cells=[r for x in scan for r in x["rows"]])
+                        cells=[r for x in scan for r in x["rows"]],
+                        ptxas=usage, deep_paths=deep)
     return rows
 
 
@@ -1140,13 +1225,16 @@ def compare_paged(rng, device, seed: int) -> dict:
                 cells=rows, ptxas=usage)
 
 
-def ptxas_lines(usage: str) -> list:
-    """The lines of nvcc's ``-Xptxas -v`` report for the instantiations the
-    Granite serve path runs (bf16 and float32 at D = 128, G = 4: 16 and 32
-    lanes a row) and the merge kernels: each entry's name, then its
+# the instantiations of csrc/paged_attention.cu the Granite serve path runs
+# (bf16 and float32 at D = 128, G = 4: 16 and 32 lanes a row) and the merge
+PAGED_PTXAS = ("13__nv_bfloat16Li16ELi4E", "fLi32ELi4E",
+               "paged_decode_merge_kernel")
+
+
+def ptxas_lines(usage: str, keep=PAGED_PTXAS) -> list:
+    """The lines of nvcc's ``-Xptxas -v`` report for the entries whose
+    mangled names hold one of ``keep``: each entry's name, then its
     registers, shared memory and spill lines."""
-    keep = ("13__nv_bfloat16Li16ELi4E", "fLi32ELi4E",
-            "paged_decode_merge_kernel")
     out, on = [], False
     for line in usage.splitlines():
         if "Compiling entry function" in line:

@@ -33,7 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FUSED_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 _ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-_SCAN_ARGS = [_P] * 7 + [_I] * 7 + [ctypes.c_longlong] + [_P] * 5
+_SCAN_ARGS = [_P] * 7 + [_I] * 5 + [ctypes.c_longlong] + [_P] * 5
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -193,7 +193,10 @@ def veb_scan_fused(value: torch.Tensor, mark: torch.Tensor,
 
     Returns (out (K, max_out) packed ascending with ``walk_big`` padding,
     n (K,) int32, hops (K,) int32, more (K,) bool): the contract of
-    `ref.ref_delta_scan_fused`, which documents the passes.
+    `ref.ref_delta_scan_fused`, which documents the passes.  The kernel
+    runs a lane on a warp, four lanes a block, and walks a pass only from
+    where its path leaves the last one; ``hops`` still counts every round
+    the plain version runs.
     """
     _check_height(height)
     if starts.dtype != value.dtype or his.dtype != value.dtype:
@@ -232,7 +235,7 @@ def veb_scan_fused(value: torch.Tensor, mark: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(value.data_ptr(), mark.data_ptr(), child.data_ptr(),
                  roots.data_ptr(), starts.data_ptr(), his.data_ptr(),
-                 pos.data_ptr(), k, m, ub, lc, height, int(max_out),
+                 pos.data_ptr(), k, m, height, int(max_out),
                  int(max_rounds), int(pmask), out.data_ptr(), n.data_ptr(),
                  hops.data_ptr(), more.data_ptr(), stream)
     veb_scan_fused.launches += 1

@@ -44,6 +44,31 @@ def assert_trees_equal(jt, tt, where="") -> None:
                                       err_msg=f"{where}: {name}")
 
 
+DEEP_KEYS = 600    # chip_smoke.py's DEEP_KEYS
+
+
+def deep_tree(payload_bits: int, n_keys: int = DEEP_KEYS):
+    """(cfg, port tree on the CPU): height 3 (four leaves a ΔNode) after
+    ``n_keys`` ascending inserts in batches of 50, then deletes among the
+    top 40 keys.  Each batch hangs below a longer chain of ΔNodes, so the
+    paths to the top 50 keys run 40-70 ΔNodes deep, past the scan kernel's
+    32-entry path stack, and the deletes leave tombstones there.  The tree
+    of ``chip_smoke.py``'s ``deep_scan_check``."""
+    from repro_torch.core import deltatree as DT
+
+    cfg = DT.TreeConfig(height=3, max_dnodes=4096, buf_cap=8,
+                        payload_bits=payload_bits, engine="lockstep")
+    t = DT.bulk_build(cfg, np.arange(1, 5, dtype=np.int32),
+                      np.arange(1, 5) if payload_bits else None, device="cpu")
+    for s in range(0, n_keys, 50):
+        keys = np.arange(10 + s, 60 + s, dtype=np.int32)
+        t, _, _ = DT.update_batch(cfg, t, np.ones(50, np.int32), keys,
+                                  keys % 97)
+    dels = np.arange(n_keys - 30, n_keys + 10, 3, dtype=np.int32)
+    t, _, _ = DT.update_batch(cfg, t, np.full(dels.size, 2, np.int32), dels)
+    return cfg, t
+
+
 def np_of(x) -> np.ndarray:
     """A JAX array or a torch tensor as numpy."""
     if hasattr(x, "detach"):

@@ -114,7 +114,8 @@ def test_cuda_index_equals_cpu_index(cuda, walk_fused):
 def test_cuda_scan_kernel_equals_plain(cuda, payload_bits):
     """`veb_scan_fused` equals its plain version exactly: sparse, dense,
     empty and past-the-end bands, sentinel lanes, per-lane roots, rows
-    that fill, and a round cap that truncates."""
+    that fill, and round caps of both parities that truncate (a cap cuts
+    lanes inside VERIFY and inside FIND passes)."""
     from repro_torch.kernels import ops as TOPS
 
     cfg = TDT.TreeConfig(height=7, max_dnodes=4096, buf_cap=16,
@@ -142,7 +143,8 @@ def test_cuda_scan_kernel_equals_plain(cuda, payload_bits):
     roots = t.root.expand(k).clone()
     pick = rng.integers(0, alive.numel(), roots[::7].numel())
     roots[::7] = alive[torch.as_tensor(pick, device=cuda)]
-    for max_out, cap in ((16, None), (128, None), (128, 200)):
+    for max_out, cap in ((16, None), (128, None), (128, 199), (128, 200),
+                         (128, 201)):
         truncating = cap is not None
         cap = cap or TOPS.scan_round_cap(7, cfg.max_dnodes, max_out)
         args = (t.value, t.mark, t.child, roots, sp, hp)
@@ -152,6 +154,74 @@ def test_cuda_scan_kernel_equals_plain(cuda, payload_bits):
         _equal(want, got, SCAN, (max_out, cap))
         assert (got[1] > 0).any()
         assert bool((got[2] == cap).any()) if truncating else got[3].any()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("payload_bits", [0, 12])
+def test_cuda_scan_kernel_deep_paths(cuda, payload_bits):
+    """Paths deeper than the kernel's path stack (32 ΔNodes): the height-3
+    tree of ascending inserts and deletes (`_torch_parity.deep_tree`),
+    built on the CPU and moved to the card; the kernel equals its plain
+    version at the full cap and at caps that cut lanes below the stack."""
+    from _torch_parity import deep_tree
+    from repro_torch.core.layout import KEY_MAX
+
+    cfg, t = deep_tree(payload_bits)
+    t = TDT.from_numpy(cfg, TDT.to_numpy(t), cuda)
+    rng = np.random.default_rng(payload_bits)
+    k = 64
+    st = rng.integers(560, 600, k).astype(np.int32)
+    hi = (st + rng.integers(5, 80, k)).astype(np.int32)
+    st[0], hi[0] = 0, KEY_MAX
+    sp = cfg.qpack(torch.as_tensor(st, device=cuda))
+    hp = cfg.qpack(torch.as_tensor(hi, device=cuda))
+    roots = t.root.expand(k).contiguous()
+    depth = TREF.ref_delta_walk_fused(t.value, t.child, roots, sp, height=3,
+                                      max_rounds=10_000)[3]
+    assert int(depth[1:].min()) > 32
+    for cap in (10_000, 37, 500, 1001):
+        args = (t.value, t.mark, t.child, roots, sp, hp)
+        kw = dict(height=3, max_out=10, pmask=cfg.pmask, max_rounds=cap)
+        got = TVS.veb_scan_fused(*args, **kw)
+        want = TREF.ref_delta_scan_fused(*args, **kw)
+        _equal(want, got, SCAN, ("deep", cap))
+        assert (got[1] > 0).any()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("payload_bits", [0, 12])
+@pytest.mark.parametrize("height", [10, 12])
+def test_cuda_scan_kernel_tall_rows(cuda, height, payload_bits):
+    """ΔNodes of 1023 and 4095 slots: the block's rows take more than the
+    48 KB default (the launch opts in), and at height 12 with 64-bit rows
+    fewer lanes share a block so that they fit; the kernel equals its
+    plain version."""
+    from repro_torch.kernels import ops as TOPS
+
+    cfg = TDT.TreeConfig(height=height, max_dnodes=512, buf_cap=8,
+                         payload_bits=payload_bits, engine="lockstep")
+    rng = np.random.default_rng(height + payload_bits)
+    vals = np.unique(rng.integers(1, 400_000, 30_000))
+    t = TDT.bulk_build(cfg, vals, vals % 4096 if payload_bits else None,
+                       device=cuda)
+    kinds = rng.choice([1, 2, 2], 512).astype(np.int32)
+    keys = rng.choice(vals, 512).astype(np.int32)
+    kinds[::3] = 1
+    keys[::3] = rng.integers(1, 400_000, keys[::3].size)
+    t, _, _ = TDT.update_batch(cfg, t, kinds, keys)
+    k = 1027
+    st = rng.integers(0, 410_000, k).astype(np.int32)
+    hi = (st + rng.integers(1, 3_000, k)).astype(np.int32)
+    sp = cfg.qpack(torch.as_tensor(st, device=cuda))
+    hp = cfg.qpack(torch.as_tensor(hi, device=cuda))
+    roots = t.root.expand(k).contiguous()
+    cap = TOPS.scan_round_cap(height, cfg.max_dnodes, 32)
+    args = (t.value, t.mark, t.child, roots, sp, hp)
+    kw = dict(height=height, max_out=32, pmask=cfg.pmask, max_rounds=cap)
+    got = TVS.veb_scan_fused(*args, **kw)
+    want = TREF.ref_delta_scan_fused(*args, **kw)
+    _equal(want, got, SCAN, (height, payload_bits))
+    assert (got[1] > 0).any() and got[3].any()
 
 
 @pytest.mark.requires_cuda
