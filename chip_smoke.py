@@ -13,14 +13,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    mode (int32) and map mode (int64, ``payload_bits=12``), over a tree of
    the Fig. 12 size after a few update batches and 2**16 queries (present
    and absent keys, walk sentinels, keys above every live key): integer
-   outputs must be equal exactly.  ``veb_walk_rows`` is checked in every
-   round of the per-round walk, on the rows that walk gathers (each lane's
-   current ΔNode, internal ones included).  Times (CUDA events) of the
-   kernel, the plain version and ``torch.searchsorted`` (a yardstick only:
-   it answers membership over the sorted live keys, not the walk's outputs,
-   and the port never calls it), and the kernel's bound: the bytes the walk
-   needs (every distinct router slot and child id it reads, queries, roots,
-   outputs) over the card's 3.35 TB/s.  The walks do a few integer compares
+   outputs must be equal exactly; the same on small churned trees of
+   heights 3, 4, 5, 8 and 12 (1, 2 and 4 vEB pieces a path), with per-lane
+   roots and batches that leave a block part-full.  ``veb_walk_rows`` is
+   checked in every round of the per-round walk, on the rows that walk
+   gathers (each lane's current ΔNode, internal ones included).  nvcc's
+   register, shared-memory and spill report of the walk instantiations.
+   Times (CUDA events) of the kernel beside the design it replaced
+   (``SIMPLE_WALK_MS``), the plain version and ``torch.searchsorted`` (a
+   yardstick only: it answers membership over the sorted live keys, not
+   the walk's outputs, and the port never calls it), the kernel's bound:
+   the bytes the walk needs (every distinct router slot and child id it
+   reads, queries, roots, outputs) over the card's 3.35 TB/s, and the
+   dependent loads from device memory a lane makes, router by router as
+   before and piece by piece now.  The walks do a few integer compares
    per loaded router, so bytes bound them.
    ``veb_scan_fused`` against its plain version on the same trees, over
    2**12 lanes that mix sparse, dense, empty (hi <= start) and
@@ -96,6 +102,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -131,6 +138,16 @@ SIMPLE_SCAN_MS = {
     ("map int64", "sparse", 16): 0.1604, ("map int64", "sparse", 128): 0.8184,
     ("map int64", "dense", 16): 0.3461, ("map int64", "dense", 128): 2.6014,
 }
+# The walk kernels' times before their redesign (one thread a query reading
+# router by router, 256 threads a block; set mode, NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside each timed cell now
+SIMPLE_WALK_MS = {
+    ("fused", "set int32", BATCH): 0.021296,
+    ("rows", "set int32", BATCH): 0.009696,
+    ("fused", "set int32", 2 ** 20): 0.1136,
+}
+WALK_CHECK_HEIGHTS = (3, 4, 5, 8, 12)   # besides Fig. 12's 7
+WALK_CHECK_K = (1, 31, 33, 1000, 4096)  # part-full blocks at every block size
 DEFERRED_STEPS = 10
 BUDGETED_STEPS = 3
 CSRC = "src/repro_torch/kernels/csrc"
@@ -218,11 +235,33 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
-def fused_needs(t, height: int, q, roots, max_rounds: int) -> int:
+def walk_threads() -> int:
+    """kThreads in csrc/veb_walk.cu: the lanes of a block, which share the
+    staged root ΔNode."""
+    m = re.search(r"constexpr int kThreads = (\d+);",
+                  (ROOT / SOURCE).read_text())
+    check(m is not None, "kThreads not found in veb_walk.cu")
+    return int(m.group(1))
+
+
+def piece_count(height: int) -> int:
+    """The vEB pieces a path crosses in a height-``height`` ΔNode
+    (``veb::piece_plan``): 1 for H <= 4, 2 for 5..8, 3 for 9, 4 above."""
+    if height <= 4:
+        return 1
+    return piece_count(height // 2) + piece_count(height - height // 2)
+
+
+def fused_needs(t, height: int, q, roots, max_rounds: int):
     """Bytes the fused walk needs on these inputs: every
     distinct (ΔNode, slot) router and child id its lanes read, each once,
     plus queries, roots, outputs and the position table.  A replay of the
-    blind descent that records addresses."""
+    blind descent that records addresses.  Also counts the dependent
+    loads from device memory each lane's rounds make: the earlier design
+    read router by router (H a round, one more for the child id); this
+    one reads a piece at a time (`piece_count` a round, the child ids
+    with the last piece) and nothing from the root its block staged.
+    Returns (bytes, {"old": per-lane loads, "new": per-lane loads})."""
     import torch
 
     from repro_torch.kernels.ref import pos_table, walk_big
@@ -234,6 +273,12 @@ def fused_needs(t, height: int, q, roots, max_rounds: int) -> int:
     vflat = t.value.reshape(-1)
     act = q != walk_big(t.value.dtype)
     dn = roots.long().clone()
+    k = q.numel()
+    block = walk_threads()
+    staged = roots.long()[torch.arange(k, device=q.device) // block * block]
+    staged = staged.clamp(0, m - 1)
+    old = torch.zeros(k, dtype=torch.long, device=q.device)
+    new = torch.zeros_like(old)
     vidx, cidx = [], []
     for _ in range(max_rounds):
         if not bool(act.any()):
@@ -250,17 +295,19 @@ def fused_needs(t, height: int, q, roots, max_rounds: int) -> int:
             lb = torch.where(router != 0, b, lb)
             b = torch.where(b < bottom0, 2 * b + (v >= router).long(), b)
         bottom = lb >= bottom0
+        old[lanes] += height + bottom.long()
+        new[lanes] += torch.where(d == staged[lanes], 0, piece_count(height))
         caddr = d * lc + (lb - bottom0).clamp(min=0)
         cidx.append(caddr[bottom])
         nxt = torch.where(bottom, t.child.reshape(-1)[caddr].long(), -1)
         dn[lanes] = torch.where(nxt >= 0, nxt, dn[lanes])
         act[lanes] = nxt >= 0
     isz = t.value.element_size()
-    k = q.numel()
     distinct_v = torch.unique(torch.cat(vidx)).numel() if vidx else 0
     distinct_c = torch.unique(torch.cat(cidx)).numel() if cidx else 0
-    return (distinct_v * isz + distinct_c * 4 + k * (isz + 4)
-            + k * (2 * isz + 3 * 4) + pos.numel() * 4)
+    nbytes = (distinct_v * isz + distinct_c * 4 + k * (isz + 4)
+              + k * (2 * isz + 3 * 4) + pos.numel() * 4)
+    return nbytes, {"old": old, "new": new}
 
 
 def rows_needs(rows, height: int, q) -> int:
@@ -696,6 +743,59 @@ def deep_scan_check(payload_bits: int, device) -> int:
     return int(depth.max())
 
 
+def walk_height_check(height: int, payload_bits: int, device) -> None:
+    """Phase 2, both walk kernels on a small churned tree of another
+    height than Fig. 12's (``tests/test_torch_cuda.py``'s tree: 20 k keys,
+    two update batches): 4096 queries (present, absent, above every key,
+    sentinels), 1 lane in 5 rooted at a live non-root ΔNode; the fused
+    kernel equal to its plain version at K = 4096 and at batches that
+    leave a block part-full, ``veb_walk_rows`` in every round of the
+    per-round walk."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import deltatree as DT
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import veb_search as VS
+
+    rng = np.random.default_rng(100 * height + payload_bits)
+    vals = np.unique(rng.integers(1, 200_000, 20_000))
+    n_eff = vals.size + 1024
+    cfg = DT.TreeConfig(height=height, buf_cap=16, engine="lockstep",
+                        payload_bits=payload_bits,
+                        max_dnodes=max(256, 6 * n_eff // 2 ** (height - 1)))
+    t = DT.bulk_build(cfg, vals, vals % 4096 if payload_bits else None,
+                      device=device)
+    for _ in range(2):
+        kinds = rng.choice([1, 2], 512).astype(np.int32)
+        keys = rng.integers(1, 200_000, 512).astype(np.int32)
+        t, _, _ = DT.update_batch(cfg, t, kinds, keys, keys % 4096)
+    check(not bool(t.alloc_fail), f"arena exhausted at height {height}")
+    q = kernel_queries(cfg, t, vals, 4096, rng, device)
+    alive = torch.nonzero(t.alive)[:, 0].to(torch.int32)
+    roots = t.root.expand(q.numel()).clone()
+    pick = rng.integers(0, alive.numel(), roots[::5].numel())
+    roots[::5] = alive[torch.as_tensor(pick, device=device)]
+    cap = cfg.walk_round_cap
+    where = f"height {height}, payload bits {payload_bits}"
+    for k in WALK_CHECK_K:
+        rk, qk = roots[:k].contiguous(), q[:k].contiguous()
+        got = VS.veb_walk_fused(t.value, t.child, rk, qk, height=height,
+                                max_rounds=cap)
+        want = ref.ref_delta_walk_fused(t.value, t.child, rk, qk,
+                                        height=height, max_rounds=cap)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        check(err == 0, f"veb_walk_fused != plain ({where}, K={k})")
+        rounds, _, _ = check_rows_rounds(t, rk, qk, height, cap,
+                                         f"{where}, K={k}")
+    log(f"height {height}, payload bits {payload_bits}: both walk kernels "
+        f"equal their plain versions (K = {', '.join(map(str, WALK_CHECK_K))}"
+        f"; max hops {int(got[3].max())}, veb_walk_rows in all {rounds} "
+        f"rounds)")
+
+
 def compare_kernels(keys, rng, device, flush) -> dict:
     """Phase 2.  Returns per-kernel rows for the result line (walks timed
     at the main path's batch of 1024, the scan at K = 512) and prints the
@@ -709,10 +809,15 @@ def compare_kernels(keys, rng, device, flush) -> dict:
     rows = {}
     scan = []
     sorted_keys = None
+    walk_usage = ptxas_lines(resource_usage(Path(SOURCE).name),
+                             ("walk_fused_kernel", "walk_rows_kernel"))
     usage = ptxas_lines(resource_usage(Path(SCAN_SOURCE).name),
                         ("scan_fused_kernel",))
-    for line in usage:
+    for line in walk_usage + usage:
         log(f"ptxas: {line}")
+    for height in WALK_CHECK_HEIGHTS:
+        for bits in (0, 12):
+            walk_height_check(height, bits, device)
     deep = [deep_scan_check(bits, device) for bits in (0, 12)]
     for bits in (0, 12):
         mode = "map int64" if bits else "set int32"
@@ -755,12 +860,14 @@ def compare_kernels(keys, rng, device, flush) -> dict:
                 continue
             keys_q = cfg.key_of(q).to(torch.int32).contiguous()
             reps = 20 if k == BATCH else 5
-            fb = fused_needs(t, h, q, roots, cap)
+            fb, trips = fused_needs(t, h, q, roots, cap)
             rb = rows_needs(rws, h, q)
             res = {
                 "fused": dict(ms=cuda_ms(fused, reps, flush),
                               plain_ms=cuda_ms(plain, 3, flush),
-                              bytes=fb, err=err, bound_ms=bound_ms(fb)),
+                              bytes=fb, err=err, bound_ms=bound_ms(fb),
+                              trips_old=float(trips["old"].float().mean()),
+                              trips_new=float(trips["new"].float().mean())),
                 "rows": dict(ms=cuda_ms(rows_k, reps, flush),
                              plain_ms=cuda_ms(rows_p, 3, flush),
                              bytes=rb, err=rerr, bound_ms=bound_ms(rb),
@@ -770,6 +877,7 @@ def compare_kernels(keys, rng, device, flush) -> dict:
                          reps, flush)
             for name, r in res.items():
                 r["searchsorted_ms"] = ss
+                r["simple_ms"] = SIMPLE_WALK_MS.get((name, mode, k))
                 log(json.dumps({"table": f"veb_walk_{name}", "mode": mode,
                                 "K": k, **r}))
                 if k == BATCH and bits == 0:
@@ -782,6 +890,7 @@ def compare_kernels(keys, rng, device, flush) -> dict:
     # default page of Index.range_scan); every cell is in the log
     cell = next(r for r in scan[0]["rows"]
                 if r["density"] == "dense" and r["max_out"] == 128)
+    rows["fused"]["ptxas"] = rows["rows"]["ptxas"] = walk_usage
     rows["scan"] = dict(cell, err=max(x["err"] for x in scan),
                         cells=[r for x in scan for r in x["rows"]],
                         ptxas=usage, deep_paths=deep)

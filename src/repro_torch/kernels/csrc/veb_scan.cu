@@ -207,8 +207,9 @@ scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
           own_dn = dn;
           r = own;
         }
-        // the blind descent (veb::descend) over the staged row, folding
-        // each occupied router once a later one replaces it as the leaf
+        // the blind descent of ref.ref_delta_walk_fused over the staged
+        // row, folding each occupied router once a later one replaces it
+        // as the leaf
         int b = 1;
         lb = 1;
         lv = 0;

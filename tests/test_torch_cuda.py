@@ -39,19 +39,25 @@ def _equal(want, got, names, where):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("payload_bits", [0, 12])
-def test_cuda_kernels_equal_plain(cuda, payload_bits):
+@pytest.mark.parametrize("height", [3, 4, 5, 7, 8, 12])
+def test_cuda_kernels_equal_plain(cuda, height, payload_bits):
     """Both CUDA kernels equal their plain versions exactly, sentinels and
-    per-query roots included; `veb_walk_rows` in every round of the
+    per-query roots included, at heights whose paths cross 1, 2 and 4 vEB
+    pieces; the fused kernel also on batches that leave a block part-full
+    (K = 1, 31, 33, 1000); `veb_walk_rows` in every round of the
     per-round walk, on the rows that walk gathers."""
-    cfg = TDT.TreeConfig(height=7, max_dnodes=4096, buf_cap=16,
+    n_keys = 20_000
+    cfg = TDT.TreeConfig(height=height, buf_cap=16,
+                         max_dnodes=max(256, 6 * n_keys // 2 ** (height - 1)),
                          payload_bits=payload_bits, engine="lockstep")
     rng = np.random.default_rng(payload_bits)
-    vals = np.unique(rng.integers(1, 200_000, 20_000))
+    vals = np.unique(rng.integers(1, 200_000, n_keys))
     t = TDT.bulk_build(cfg, vals, vals % 4096 if payload_bits else None,
                        device=cuda)
     kinds = rng.choice([1, 2], 512).astype(np.int32)
     keys = rng.integers(1, 200_000, 512).astype(np.int32)
     t, _, _ = TDT.update_batch(cfg, t, kinds, keys)
+    assert not bool(t.alloc_fail)
     q = cfg.qpack(torch.as_tensor(rng.integers(1, 210_000, 4096)
                                   .astype(np.int32), device=cuda))
     q[:7] = TVS.walk_big(cfg.vdtype)
@@ -59,11 +65,12 @@ def test_cuda_kernels_equal_plain(cuda, payload_bits):
     roots = t.root.expand(q.shape[0]).clone()
     pick = rng.integers(0, alive.numel(), roots[::5].numel())
     roots[::5] = alive[torch.as_tensor(pick, device=cuda)]
-    got = TVS.veb_walk_fused(t.value, t.child, roots, q, height=7,
-                             max_rounds=cfg.walk_round_cap)
-    want = TREF.ref_delta_walk_fused(t.value, t.child, roots, q, height=7,
-                                     max_rounds=cfg.walk_round_cap)
-    _equal(want, got, WALK, "fused")
+    cap = cfg.walk_round_cap
+    for k in (1, 31, 33, 1000, 4096):
+        args = (t.value, t.child, roots[:k].contiguous(), q[:k].contiguous())
+        got = TVS.veb_walk_fused(*args, height=height, max_rounds=cap)
+        want = TREF.ref_delta_walk_fused(*args, height=height, max_rounds=cap)
+        _equal(want, got, WALK, ("fused", k))
     # replay of repro_torch.kernels.ops._delta_walk, checked per round
     dn = roots.clone()
     resolved = q == TVS.walk_big(cfg.vdtype)
@@ -71,14 +78,14 @@ def test_cuda_kernels_equal_plain(cuda, payload_bits):
     while not bool(resolved.all()):
         dnc = dn.long()
         rows, crows = t.value[dnc], t.child[dnc]
-        got = TVS.veb_walk_rows(rows, crows, q, height=7)
-        want = TREF.ref_veb_walk_rows(rows, crows, q, height=7)
+        got = TVS.veb_walk_rows(rows, crows, q, height=height)
+        want = TREF.ref_veb_walk_rows(rows, crows, q, height=height)
         _equal(want, got, ROWS, ("rows", rounds))
         act = ~resolved
         dn = torch.where(act & (got[2] >= 0), got[2], dn)
         resolved = resolved | (act & (got[2] < 0))
         rounds += 1
-        assert rounds <= cfg.walk_round_cap
+        assert rounds <= cap
     assert rounds > 1
 
 
