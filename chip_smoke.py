@@ -89,12 +89,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
    three traced with ``torch.profiler`` (device time by kind and the idle
    share of those steps' wall time); and the churn trace under deferred maintenance with a
    mid-trace ``scan`` checked against the block tables.
+6. The DeltaForest at ``benchmarks/forest_scale.py --full`` size
+   (``backend_kwargs("forest", ...)``): 500,000 draws in [1, 2,000,000)
+   (~442 k keys), height 7, buf_cap 32, per-shard ``max_dnodes``
+   8 (n + 50,000) / S / 64.  6.1: for S = 1, 4, 8 (set mode) and S = 4
+   (map mode, ``payload_bits=12``) the same read batches (1021 keys:
+   shard boundaries, keys above the last live key, below the domain;
+   scans of 509 sparse and dense bands at ``max_out`` 128;
+   ``successor_k(16)``) through ``make_index("forest",
+   engine="lockstep")`` (the fused frontier), the same with
+   ``fused=False`` (the dense per-shard dispatch) and the oracle, equal
+   bit for bit; after each of 3 update batches (both dispatches' arenas
+   equal); under ``deferred`` after clustered inserts that leave items
+   buffered in several shards; then ``flush``, every shard's
+   ``alloc_fail`` and the live set.  6.2: forest_scale's grid, S in 1, 2,
+   4, 8 x batch 256, 1024, 4096, 100,000 ops at 5 % updates (two warm-up
+   steps off the clock), under both dispatches beside the ``deltatree``
+   baseline (lockstep engine), every step checked against the oracle;
+   ops/s, ``speedup``, ``speedup_vs_vmap``, search / update medians, walk
+   launches a search batch (1 fused, S dense), view-cache builds / hits.
+   6.3: kernels 2 and 3 on the fused views of S = 1 and 8 (K = 1024 keys
+   in batch order; 512 dense bands tiled over the shards), exact against
+   the plain versions, timed beside the byte bound and the share of lanes
+   whose root is the one their block staged.  6.4: phase 5.2's float32
+   leg over ``ShardedPagerConfig(num_shards=4)``: tokens equal the dense
+   decode's, block tables the single-tree pager's at every step, and the
+   fused view reused (``view_hits`` > 0).
 Each run of a path (fused steps, per-round steps, scans, deferred,
-budgeted, each serve run) sets the launch counters to 0 just before it and
-reads them just after: its kernels must have launched (the paged kernel
-once per layer per decode step), and no plain version may have run.
+budgeted, each serve run, each forest run, 6.1's fused reads and dense
+reads apart) sets the launch counters to 0 just before it and reads them
+just after: its kernels must have launched (the paged kernel once per
+layer per decode step), and no plain version may have run.
 
-The second-to-last line is ``{"kernels": [...]}``; the last is
+The second-to-last line is ``{"kernels": [...]}`` (rows 2-4 also carry
+``forest_launches``: kernel 2's in phase 6.2's fused runs, kernel 3's in
+6.1's fused reads, kernel 4's in 6.4's sharded serve run); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -199,9 +228,9 @@ def mixed_kinds(rng, k: int, update_pct: float):
     return np.where(u, np.where(ins, 1, 2), 0).astype(np.int32)
 
 
-def fig12_config(n_keys: int) -> dict:
+def fig12_config(n_keys: int, total_ops: int = TOTAL_OPS) -> dict:
     """benchmarks/common.py::backend_kwargs("deltatree", ...)."""
-    n_eff = n_keys + TOTAL_OPS // 2
+    n_eff = n_keys + total_ops // 2
     height = 7
     return dict(height=height, buf_cap=32, max_rounds=256,
                 max_dnodes=max(256, int(6 * n_eff / 2 ** (height - 1))))
@@ -429,16 +458,18 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def scan_bands(rng, n_keys: int, k: int, density: str, max_out: int):
-    """benchmarks/scan_sweep.py::_scan_row's windows: ``k`` lanes whose
-    band holds ~``DENSITY_FILL[density] * max_out`` live keys; returns
-    (exclusive starts, inclusive his) as int32 numpy arrays."""
+def scan_bands(rng, n_keys: int, k: int, density: str, max_out: int,
+               key_max: int = KEY_MAX):
+    """benchmarks/scan_sweep.py::_scan_row's windows over [1, key_max]:
+    ``k`` lanes whose band holds ~``DENSITY_FILL[density] * max_out`` live
+    keys; returns (exclusive starts, inclusive his) as int32 numpy
+    arrays."""
     import numpy as np
 
-    width = max(1, int(KEY_MAX / n_keys * DENSITY_FILL[density] * max_out))
-    lo = rng.integers(1, max(2, KEY_MAX - width), k)
+    width = max(1, int(key_max / n_keys * DENSITY_FILL[density] * max_out))
+    lo = rng.integers(1, max(2, key_max - width), k)
     return ((lo - 1).astype(np.int32),
-            np.minimum(lo + width, KEY_MAX).astype(np.int32))
+            np.minimum(lo + width, key_max).astype(np.int32))
 
 
 def pack_bands(cfg, starts, his, device):
@@ -1527,6 +1558,8 @@ class Probe:
          D.prefill_to_pages) = self._orig
 
     def summary(self) -> dict:
+        from repro_torch.api.index import cfg_attr
+
         return dict(
             decode_steps=len(self.lanes),
             decode_step_ms=statistics.median(self.decode_s) * 1e3,
@@ -1539,7 +1572,8 @@ class Probe:
             decode_tok_s=sum(self.lanes) / sum(self.decode_s),
             mean_hops=self.eng.pager.stats["hops"]
             / max(self.eng.pager.stats["searches"], 1),
-            walk_rounds=self.eng.pager.index.cfg.walk_round_cap,
+            walk_rounds=cfg_attr(self.eng.pager.index.cfg,
+                                 "walk_round_cap"),
             index_checks=self.index_checks)
 
 
@@ -1804,6 +1838,569 @@ def serve_phase(seed: int, device) -> dict:
     return dict(kernel=kern, exact=exact, **full)
 
 
+# --------------------------------------------------------------------------
+# phase 6: the DeltaForest at benchmarks/forest_scale.py --full size
+# --------------------------------------------------------------------------
+
+FOREST_KEY_MAX = 2_000_000      # benchmarks/forest_scale.py KEY_MAX
+FOREST_INITIAL = 500_000        # --full initial_size (draws; ~442 k unique)
+FOREST_TOTAL_OPS = 100_000      # --full total_ops; sizes the arenas
+FOREST_UPDATE_PCT = 5.0
+FOREST_SHARDS = (1, 2, 4, 8)
+FOREST_BATCHES = (256, 1024, 4096)
+FOREST_WARMUP = 2               # run_index's warm-up steps, off the clock
+FOREST_EXACT = ((1, 0), (4, 0), (8, 0), (4, 12))   # 6.1: (S, payload bits)
+FOREST_CHECK_K = 1021           # 6.1 read batch: no multiple of 4 or 64
+FOREST_SCAN_K = 509             # 6.1 scan bands, likewise
+FOREST_CHECK_STEPS = 3          # 6.1 update batches (50 % updates)
+FOREST_WALK_K = 1024            # 6.3: kernel 2's batch
+FOREST_SCAN_LANES = 512         # 6.3: kernel 3's bands (x S tiled lanes)
+SHARDED_SHARDS = 4              # 6.4: ShardedPagerConfig(num_shards=4)
+
+
+def forest_config(n_keys: int, shards: int) -> dict:
+    """benchmarks/common.py::backend_kwargs("forest", ...)."""
+    n_eff = n_keys + FOREST_TOTAL_OPS // 2
+    height = 7
+    return dict(num_shards=shards, key_max=FOREST_KEY_MAX, height=height,
+                buf_cap=32, max_rounds=256,
+                max_dnodes=max(64, int(8 * n_eff / shards
+                                       / 2 ** (height - 1))))
+
+
+def forest_traffic(seed: int, batch: int, initial) -> dict:
+    """benchmarks/common.py::run_index's stream for one batch size (its rng
+    seeded with ``seed``; 2 warm-up steps, then total_ops // batch), with
+    the set oracle's answers: each step's search on the pre-step set, then
+    its update rows in batch order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    live = set(initial.tolist())
+    steps = []
+    for _ in range(FOREST_WARMUP + max(FOREST_TOTAL_OPS // batch, 1)):
+        kinds = mixed_kinds(rng, batch, FOREST_UPDATE_PCT)
+        keys = rng.integers(1, FOREST_KEY_MAX, size=batch).astype(np.int32)
+        found = np.fromiter((k in live for k in keys.tolist()), bool, batch)
+        res = np.zeros(batch, bool)
+        for i in np.flatnonzero(kinds):
+            k = int(keys[i])
+            if kinds[i] == 1:
+                res[i] = k not in live
+                live.add(k)
+            else:
+                res[i] = k in live
+                live.discard(k)
+        steps.append((kinds, keys, found, res))
+    return dict(steps=steps, live=np.asarray(sorted(live), np.int64))
+
+
+def copy_index(ix, **cfg_kw):
+    """A second Index over a copy of ``ix``'s state on the card (one
+    device copy instead of another host build); ``cfg_kw`` replaces
+    ForestConfig fields, ``maintenance=`` the per-shard policy."""
+    import dataclasses
+
+    from repro_torch.api import Index, IndexSpec
+
+    st = ix.state
+    cfg = ix.cfg
+    policy = cfg_kw.pop("maintenance", None)
+    if policy is not None:
+        cfg = dataclasses.replace(cfg, tree=dataclasses.replace(
+            cfg.tree, maintenance=policy))
+    if cfg_kw:
+        cfg = dataclasses.replace(cfg, **cfg_kw)
+    if hasattr(st, "trees"):
+        st = st._replace(trees=type(st.trees)(*(x.clone() for x in st.trees)),
+                         reads=st.reads.clone(), updates=st.updates.clone(),
+                         epoch=0)
+    else:
+        st = type(st)(*(x.clone() for x in st))
+    return Index(IndexSpec(backend=ix.spec.backend, cfg=cfg), st)
+
+
+def boundary_keys(ix, live):
+    """Keys at every shard boundary (split - 1, split, split + 1), the
+    live extremes, keys above the last live key (the cross-shard
+    successor falls through to nothing) and below the domain."""
+    import numpy as np
+
+    sp = ix.state.splits.cpu().numpy().astype(np.int64)
+    top = int(live[-1])
+    ks = np.concatenate([sp - 1, sp, sp + 1,
+                         [0, 1, int(live[0]), top, top + 1, top + 500,
+                          FOREST_KEY_MAX + 5]])
+    return ks.astype(np.int32)
+
+
+def same_cols(a, b, where: str) -> None:
+    """Two read results equal bit for bit, dtypes included."""
+    import torch
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"{where}: column {i} differs between the dispatches")
+
+
+def forest_reads_agree(ixf, ixd, live, pays, q, rng, where: str) -> dict:
+    """6.1: one read batch three ways — the fused frontier, the dense
+    per-shard dispatch and the oracle: lookup / search (found, payload,
+    hops), successor, scans (sparse and dense bands, max_out 128) and
+    successor_k.  The fused reads run alone between a counter reset and a
+    read, then the dense reads the same way; returns the fused reads'
+    counts (walk and scan launched, no plain version)."""
+    import numpy as np
+
+    from repro_torch.core.layout import KEY_MAX as DOMAIN_MAX
+
+    bits = ixf.cfg.tree.payload_bits
+    bands = [scan_bands(rng, live.size, FOREST_SCAN_K, density, 128,
+                        FOREST_KEY_MAX) for density in DENSITY_FILL]
+    names = ("search", "successor",
+             *(f"{d} scan" for d in DENSITY_FILL), "successor_k")
+
+    def reads(ix):
+        return [ix.lookup(q) if bits else ix.search(q), ix.successor(q),
+                *(ix.spec.backend.scan(ix.cfg, ix.state, st, hi, 128)
+                  for st, hi in bands),
+                ix.successor_k(q[:FOREST_SCAN_K], 16)]
+
+    reset_counts()
+    got = reads(ixf)
+    counts = read_counts()
+    check(counts["fused"] > 0 and counts["scan"] > 0
+          and counts["plain"] == 0, f"{where}: fused reads' launches {counts}")
+    reset_counts()
+    dense = reads(ixd)
+    dcounts = read_counts()
+    check(dcounts["plain"] == 0, f"{where}: dense reads ran a plain version")
+    for name, a, b in zip(names, got, dense):
+        same_cols(a, b, f"{where}: {name}")
+    found = got[0]
+    idx = np.searchsorted(live, q)
+    hit = (idx < live.size) & (live[np.minimum(idx, live.size - 1)] == q)
+    check((found[0].cpu().numpy() == hit).all(),
+          f"{where}: search differs from the oracle")
+    if bits:
+        check((found[1].cpu().numpy()[hit] == pays[idx[hit]]).all(),
+              f"{where}: payloads differ from the oracle")
+    sf, sk = got[1]
+    idx = np.searchsorted(live, q, side="right")
+    want_f = idx < live.size
+    want_k = np.where(want_f, live[np.minimum(idx, live.size - 1)], 0)
+    check((sf.cpu().numpy() == want_f).all()
+          and (sk.cpu().numpy() == want_k).all(),
+          f"{where}: successor differs from the oracle")
+    for density, (st, hi), res in zip(DENSITY_FILL, bands, got[2:-1]):
+        check_scan(res, live, st, hi, 128, f"{where}, {density} scan")
+    check_scan(got[-1], live, q[:FOREST_SCAN_K],
+               np.full(FOREST_SCAN_K, DOMAIN_MAX), 16, f"{where}, succ_k")
+    return counts
+
+
+def forest_exact(ix0, rng, where: str) -> dict:
+    """6.1 on one forest: reads three ways on the built forest, after each
+    of ``FOREST_CHECK_STEPS`` update batches (both dispatches' arenas
+    equal after each), and under ``deferred`` after a batch of clustered
+    inserts that leaves items buffered in several shards (then flush);
+    every shard's alloc_fail and the final live set.  The fused reads'
+    launches are counted in windows of their own (forest_reads_agree);
+    the updates and the flush in theirs, where no plain version may run."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import OpBatch
+
+    ixf, ixd = copy_index(ix0), copy_index(ix0, fused=False)
+    bits = ix0.cfg.tree.payload_bits
+    items = ix0.live_items()
+    live = np.asarray([k for k, _ in items], np.int64)
+    pays = np.asarray([p for _, p in items], np.int64)
+    oracle = dict(items)
+
+    def batch():
+        q = rng.integers(0, FOREST_KEY_MAX + 1000,
+                         FOREST_CHECK_K).astype(np.int32)
+        b = boundary_keys(ixf, live)
+        q[:b.size] = b
+        q[b.size: b.size + FOREST_CHECK_K // 2] = rng.choice(
+            live, FOREST_CHECK_K // 2)
+        return q
+
+    def no_plain(what: str) -> None:
+        c = read_counts()
+        check(c["plain"] == 0, f"{where}: {what} ran a plain version {c}")
+
+    fused = collections.Counter(forest_reads_agree(
+        ixf, ixd, live, pays, batch(), rng, f"{where}, built"))
+    for step in range(FOREST_CHECK_STEPS):
+        kinds = mixed_kinds(rng, FOREST_CHECK_K, 50)
+        keys = rng.integers(1, FOREST_KEY_MAX, FOREST_CHECK_K).astype(np.int32)
+        keys[:64] = rng.choice(live, 64)
+        pp = (keys % 4096).astype(np.int32)
+        want = np.zeros(keys.size, bool)
+        for i in np.flatnonzero(kinds):
+            k = int(keys[i])
+            want[i] = (k not in oracle) if kinds[i] == 1 else (k in oracle)
+            if kinds[i] == 1 and want[i]:
+                oracle[k] = int(pp[i]) if bits else 0
+            elif kinds[i] == 2:
+                oracle.pop(k, None)
+        reset_counts()
+        ixf, res, st = ixf.update(OpBatch.mixed(kinds, keys, pp))
+        ixd, resd, std = ixd.update(OpBatch.mixed(kinds, keys, pp))
+        no_plain(f"update {step}")
+        check((res.cpu().numpy() == want).all() and torch.equal(res, resd)
+              and st == std, f"{where}: update results differ at {step}")
+        check(all(torch.equal(a, b) for a, b in zip(ixf.state.trees,
+                                                    ixd.state.trees)),
+              f"{where}: the dispatches' arenas differ after step {step}")
+        live = np.asarray(sorted(oracle), np.int64)
+        pays = np.asarray([oracle[k] for k in live.tolist()], np.int64)
+        fused.update(forest_reads_agree(ixf, ixd, live, pays, batch(), rng,
+                                        f"{where}, step {step}"))
+    check(not bool(ixf.state.trees.alloc_fail.any()),
+          f"{where}: a shard's arena allocation failed")
+    check(ixf.live_items() == sorted(oracle.items()),
+          f"{where}: live items differ from the oracle")
+    # deferred: clustered inserts fill overflow buffers in several shards
+    qf = copy_index(ixf, maintenance="deferred")
+    qd = copy_index(ixf, maintenance="deferred", fused=False)
+    runs = (rng.choice(live, FOREST_CHECK_K // 8)[:, None]
+            + np.arange(1, 9)).reshape(-1).astype(np.int32)
+    ones = np.ones(runs.size, np.int32)
+    pr = (runs % 4096).astype(np.int32)
+    reset_counts()
+    qf, res, st = qf.update(OpBatch.mixed(ones, runs, pr))
+    qd, resd, _ = qd.update(OpBatch.mixed(ones, runs, pr))
+    no_plain("the deferred update")
+    for k, p, ok in zip(runs.tolist(), pr.tolist(), res.cpu().tolist()):
+        check(ok == (k not in oracle), f"{where}: deferred insert result")
+        oracle.setdefault(k, p if bits else 0)
+    buffered = int((qf.state.trees.bcount.sum(1) > 0).sum())
+    check(st.pending > 0 and buffered >= min(2, ix0.cfg.num_shards),
+          f"{where}: the deferred batch left {st.pending} items buffered "
+          f"in {buffered} shards")
+    live = np.asarray(sorted(oracle), np.int64)
+    pays = np.asarray([oracle[k] for k in live.tolist()], np.int64)
+    fused.update(forest_reads_agree(qf, qd, live, pays, batch(), rng,
+                                    f"{where}, deferred"))
+    reset_counts()
+    qf, fst = qf.flush()
+    no_plain("the flush")
+    check(fst.pending == 0 and qf.live_items() == sorted(oracle.items())
+          and not bool(qf.state.trees.alloc_fail.any()),
+          f"{where}: deferred flush")
+    return dict(where=where, shards=ix0.cfg.num_shards, payload_bits=bits,
+                pending=st.pending, buffered_shards=buffered,
+                size=qf.size(), fused_read_counts=dict(fused))
+
+
+def forest_run(ix, traffic, label: str) -> dict:
+    """6.2: one point of the grid — run_index's loop through the Index
+    API (search the whole batch, then insert_delete the whole batch with
+    its search rows as no-ops), each step checked against the oracle.
+    Host-clocked, each call ending in a synchronize; the checks are off
+    the clock.  Counters set to 0 before the run and read after; walk
+    launches are also counted in the search calls alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import OpBatch
+    from repro_torch.core import deltatree as DT
+    from repro_torch.distributed import forest as TF
+    from repro_torch.kernels import veb_search as VS
+
+    v0 = TF.fused_view_cache_stats()
+    reset_counts()
+    search_s, update_s, walks = [], [], []
+    for i, (kinds, keys, want_found, want_res) in enumerate(traffic["steps"]):
+        n0 = VS.veb_walk_fused.launches
+        t0 = time.perf_counter()
+        found, _ = ix.search(keys)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n1 = VS.veb_walk_fused.launches
+        ix, res = ix.insert_delete(OpBatch.mixed(kinds, keys))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check((found.cpu().numpy() == want_found).all(),
+              f"{label}: search differs from the oracle at step {i}")
+        check((res.cpu().numpy() == want_res).all(),
+              f"{label}: update results differ from the oracle at step {i}")
+        if i >= FOREST_WARMUP:
+            search_s.append(t1 - t0)
+            update_s.append(t2 - t1)
+            walks.append(n1 - n0)
+    counts = read_counts()
+    v1 = TF.fused_view_cache_stats()
+    check(counts["fused"] > 0 and counts["plain"] == 0,
+          f"{label}: {counts} (the walk kernel must run, no plain version)")
+    ops = len(search_s) * len(traffic["steps"][0][0])
+    check(not ix.alloc_failed(), f"{label}: arena allocation failed")
+    live = (TF.live_keys(ix.cfg, ix.state) if ix.backend == "forest" else
+            DT.live_keys(ix.cfg, ix.state))
+    check(np.array_equal(live, traffic["live"]),
+          f"{label}: live keys differ from the oracle")
+    return dict(ops_per_s=ops / (sum(search_s) + sum(update_s)),
+                search_ms=statistics.median(search_s) * 1e3,
+                update_ms=statistics.median(update_s) * 1e3,
+                walk_launches_per_search=statistics.fmean(walks),
+                view_builds=v1["builds"] - v0["builds"],
+                view_hits=v1["hits"] - v0["hits"], steps=len(search_s),
+                counts=counts)
+
+
+def forest_kernels(ix, rng, flush) -> dict:
+    """6.3: kernels 2 and 3 on one forest's fused view, as the fused path
+    launches them: kernel 2 on a batch of ``FOREST_WALK_K`` keys in batch
+    order (each lane seeded at its shard's root), kernel 3 on
+    ``FOREST_SCAN_LANES`` dense bands tiled shard-major (lane s*k + i).
+    Each against its plain version (exact), timed (CUDA events, L2
+    flushed), beside its byte bound and the share of lanes whose root is
+    the one their block staged."""
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.distributed import router as R
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import veb_search as VS
+    from repro_torch.kernels.ops import scan_round_cap
+
+    cfg = ix.cfg.tree
+    s = ix.cfg.num_shards
+    dev = ix.state.splits.device
+    view, roots = E._fused_trees_view(cfg, ix.state.trees)
+    h, cap = cfg.height, cfg.walk_round_cap
+    keys = torch.as_tensor(rng.integers(1, FOREST_KEY_MAX, FOREST_WALK_K),
+                           dtype=torch.int32, device=dev)
+    q = E._walk_queries(cfg, keys).contiguous()
+    r = roots[R.shard_ids(ix.state.splits, keys).long()].contiguous()
+
+    def walk():
+        return VS.veb_walk_fused(view.value, view.child, r, q, height=h,
+                                 max_rounds=cap)
+
+    def walk_plain():
+        return ref.ref_delta_walk_fused(view.value, view.child, r, q,
+                                        height=h, max_rounds=cap)
+
+    got, want = walk(), walk_plain()
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    check(err == 0, f"veb_walk_fused != plain on the fused view, S={s}")
+    wb, _ = fused_needs(view, h, q, r, cap)
+    lane = torch.arange(FOREST_WALK_K, device=dev)
+    block = walk_threads()
+    walk_row = dict(ms=cuda_ms(walk, 20, flush),
+                    plain_ms=cuda_ms(walk_plain, 3, flush), bytes=wb,
+                    bound_ms=bound_ms(wb), err=err,
+                    staged_root_share=float(
+                        (r == r[lane // block * block]).float().mean()),
+                    mean_hops=float(got[3].float().mean()))
+    n_keys = int(ix.size())
+    st, hi = scan_bands(rng, n_keys, FOREST_SCAN_LANES, "dense", 128,
+                        FOREST_KEY_MAX)
+    sp, hp = pack_bands(cfg, st, hi, dev)
+    sp, hp = sp.repeat(s).contiguous(), hp.repeat(s).contiguous()
+    lid = torch.arange(s, device=dev).repeat_interleave(FOREST_SCAN_LANES)
+    sr = roots[lid].contiguous()
+    scap = scan_round_cap(h, view.value.shape[0], 128)
+    args = (view.value, view.mark, view.child, sr, sp, hp)
+    kw = dict(height=h, max_out=128, pmask=cfg.pmask, max_rounds=scap)
+    got = VS.veb_scan_fused(*args, **kw)
+    want = ref.ref_delta_scan_fused(*args, **kw)
+    serr = max(int((a.long() - b.long()).abs().max())
+               for a, b in zip(got, want))
+    check(serr == 0, f"veb_scan_fused != plain on the fused view, S={s}")
+    sb, n_replay = scan_needs(view, h, sr, sp, hp, 128, cfg.pmask, scap)
+    check(torch.equal(n_replay, got[1]), "scan byte replay diverged")
+    tl = torch.arange(sr.numel(), device=dev)
+    scan_row = dict(ms=cuda_ms(lambda: VS.veb_scan_fused(*args, **kw), 10,
+                               flush),
+                    plain_ms=None, bytes=sb, bound_ms=bound_ms(sb), err=serr,
+                    lanes=int(sr.numel()),
+                    staged_root_share=float(
+                        (sr == sr[tl // 4 * 4]).float().mean()),
+                    emitted=int(got[1].sum()))
+    return dict(shards=s, walk=walk_row, scan=scan_row)
+
+
+def sharded_serve_leg(rng, device, seed: int) -> dict:
+    """6.4: phase 5.2's float32 exact-token leg (Granite at full width, 4
+    layers) served twice from the same weights and prompts, over the
+    single-tree pager and over ``ShardedPagerConfig(num_shards=4)``: the
+    sharded run's tokens must equal the dense decode's, its block tables
+    the single-tree pager's at every step, and the fused view must be
+    reused (view_hits > 0).  Counters set to 0 before the sharded run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import (
+        PagerConfig, ServeEngine, ShardedDeltaPager, ShardedPagerConfig,
+    )
+
+    cfg = dataclasses.replace(CONFIG, num_layers=EXACT_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    model = Transformer(cfg, device=device, seed=seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype("int32")
+               for n in rng.integers(*EXACT_PROMPT, EXACT_REQUESTS)]
+    runs = {}
+    for name, pc in (("tree", PagerConfig(engine="lockstep")),
+                     ("forest", ShardedPagerConfig(num_shards=SHARDED_SHARDS,
+                                                   engine="lockstep"))):
+        eng = ServeEngine(cfg, model, pc, max_batch=EXACT_REQUESTS)
+        probe = Probe(eng, check_index=True)
+        tables = []
+        lookup = eng.pager.block_tables
+
+        def recorded(sids, n, lookup=lookup, tables=tables):
+            out = lookup(sids, n)
+            tables.append(out.cpu())
+            return out
+
+        eng.pager.block_tables = recorded
+        reset_counts()
+        wall = run_engine(eng, prompts, EXACT_NEW)
+        counts = read_counts()
+        probe.close()
+        check_serve_counts(counts, cfg.num_layers, len(probe.lanes),
+                           f"{name} pager")
+        runs[name] = dict(eng=eng, probe=probe, tables=tables, wall=wall,
+                          counts=counts)
+    tree, forest = runs["tree"], runs["forest"]
+    eng = forest["eng"]
+    check(isinstance(eng.pager, ShardedDeltaPager)
+          and eng.pager.index.capability.fused_forest,
+          "sharded leg: the pager is not a fused forest")
+    check(len(tree["tables"]) == len(forest["tables"])
+          and all(torch.equal(a, b) for a, b in zip(tree["tables"],
+                                                    forest["tables"])),
+          "sharded leg: block tables differ from the single-tree pager's")
+    steps = 0
+    for sid, req in eng.active.items():
+        check(req.out == tree["eng"].active[sid].out,
+              f"sharded leg: request {sid}'s tokens differ")
+        n, _, _, _ = dense_check(model, req, forest["probe"].logits[sid],
+                                 None)
+        steps += n
+    obs = eng.obs.asdict()
+    check(obs["view_hits"] > 0, "sharded leg: the fused view was never reused")
+    check(len(eng.pager.free_pages) == eng.pager.cfg.num_pages,
+          "sharded leg: pages not reclaimed")
+    row = dict(layers=cfg.num_layers, shards=SHARDED_SHARDS,
+               requests=len(prompts), steps_compared=len(forest["tables"]),
+               dense_steps_equal=steps, wall_s=forest["wall"],
+               tree_wall_s=tree["wall"], counts=forest["counts"],
+               view_hits=obs["view_hits"], view_builds=obs["view_builds"],
+               forest_lookup_ms=forest["probe"].summary()["lookup_ms"],
+               tree_lookup_ms=tree["probe"].summary()["lookup_ms"],
+               mean_hops=forest["probe"].summary()["mean_hops"])
+    del runs, tree, forest, eng, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def forest_phase(seed: int, device) -> dict:
+    """Phase 6, in order: 6.1 exactness at S = 1, 4, 8 (set) and S = 4
+    (map); 6.2 the timed grid S x batch under both dispatches, beside the
+    deltatree baseline; 6.3 kernels 2 and 3 on the fused views of S = 1
+    and S = 8; 6.4 the sharded pager serve leg."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import make_index
+    from repro_torch.distributed import forest as TF
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 6)
+    keys = np.unique(rng.integers(1, FOREST_KEY_MAX, FOREST_INITIAL)
+                     .astype(np.int32))
+    n = int(keys.size)
+    log(f"forest: {n} keys, per shard {forest_config(n, 1)} at S = 1")
+    TF.reset_fused_view_cache()
+    traffic = {b: forest_traffic(seed, b, keys) for b in FOREST_BATCHES}
+    exact, grid, built, kern = [], [], {}, []
+    launches = dict(fused=0, scan=0)
+    base = make_index("deltatree", initial=keys, engine="lockstep",
+                      device=device, **fig12_config(n, FOREST_TOTAL_OPS))
+    base_rows = {}
+    for b in FOREST_BATCHES:
+        base_rows[b] = forest_run(copy_index(base), traffic[b],
+                                  f"deltatree, batch {b}")
+        log(json.dumps({"forest_grid": dict(backend="deltatree", batch=b,
+                                            **base_rows[b])}))
+    del base
+    for s in FOREST_SHARDS:
+        tb = time.perf_counter()
+        ix0 = make_index("forest", initial=keys, engine="lockstep",
+                         device=device, **forest_config(n, s))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tb
+        arena = sum(x.numel() * x.element_size() for x in ix0.state.trees)
+        log(f"forest S={s}: built in {build_s:.2f} s, {arena / 1e6:.1f} MB "
+            f"of arena, splits {ix0.state.splits.tolist()}")
+        if (s, 0) in FOREST_EXACT:
+            exact.append(forest_exact(ix0, rng, f"S={s} set"))
+            log(json.dumps({"forest_exact": exact[-1]}))
+            launches["scan"] += exact[-1]["fused_read_counts"]["scan"]
+        for b in FOREST_BATCHES:
+            rows = {}
+            for dispatch in ("fused", "dense"):
+                ix = copy_index(ix0, fused=dispatch == "fused")
+                rows[dispatch] = forest_run(ix, traffic[b],
+                                            f"S={s} {dispatch}, batch {b}")
+                del ix
+            launches["fused"] += rows["fused"]["counts"]["fused"]
+            f, d = rows["fused"], rows["dense"]
+            check(f["walk_launches_per_search"] == 1
+                  and d["walk_launches_per_search"] == s,
+                  f"S={s}, batch {b}: walk launches a search batch "
+                  f"{f['walk_launches_per_search']} fused, "
+                  f"{d['walk_launches_per_search']} dense")
+            point = dict(shards=s, batch=b, arena_mb=arena / 1e6,
+                         build_s=build_s,
+                         baseline_ops_per_s=base_rows[b]["ops_per_s"],
+                         speedup=f["ops_per_s"] / base_rows[b]["ops_per_s"],
+                         speedup_vs_vmap=f["ops_per_s"] / d["ops_per_s"],
+                         fused=f, dense=d)
+            grid.append(point)
+            log(json.dumps({"forest_grid": point}))
+        if s in (1, 8):
+            built[s] = ix0
+        else:
+            del ix0
+        torch.cuda.empty_cache()
+    log(f"phase 6.1-6.2 done at {time.perf_counter() - t0:.1f} s")
+    ixm = make_index("forest", initial=keys, payloads=keys % 4096,
+                     engine="lockstep", device=device, payload_bits=12,
+                     **forest_config(n, 4))
+    exact.append(forest_exact(ixm, rng, "S=4 map"))
+    launches["scan"] += exact[-1]["fused_read_counts"]["scan"]
+    log(json.dumps({"forest_exact": exact[-1]}))
+    del ixm
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
+    for s in (1, 8):
+        kern.append(forest_kernels(built[s], rng, flush))
+        log(json.dumps({"forest_kernels": kern[-1]}))
+    del flush, built
+    torch.cuda.empty_cache()
+    log(f"phase 6.3 done at {time.perf_counter() - t0:.1f} s")
+    serve = sharded_serve_leg(rng, device, seed)
+    log(json.dumps({"sharded_serve": serve}))
+    elapsed = time.perf_counter() - t0
+    log(f"phase 6 done in {elapsed:.1f} s")
+    return dict(exact=exact, grid=grid, kernels=kern, serve=serve,
+                launches=dict(launches, paged=serve["counts"]["paged"]),
+                elapsed_s=elapsed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1835,8 +2432,8 @@ def main() -> int:
 
 
 def run_phases(seed: int, device):
-    """Phases 2-5 on ``device``; returns (the rows of the kernels line, the
-    serve phase's results)."""
+    """Phases 2-6 on ``device``; returns (the rows of the kernels line, the
+    serve phase's results, the forest phase's under ``"forest"``)."""
     import numpy as np
     import torch
 
@@ -1877,6 +2474,8 @@ def run_phases(seed: int, device):
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     serve = serve_phase(seed, device)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    serve["forest"] = forest = forest_phase(seed, device)
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",
@@ -1887,12 +2486,16 @@ def run_phases(seed: int, device):
     launches = {"fused": fused_run["counts"]["fused"],
                 "rows": round_run["counts"]["rows"],
                 "scan": scan_run["counts"]["scan"]}
+    forest_launches = forest["launches"]
     out = []
     for name in ("fused", "rows", "scan"):
         r = kern[name]
+        extra = ({} if name == "rows" else
+                 {"forest_launches": forest_launches[name]})
         out.append({"name": names[name], "route": "cuda",
                     "source": sources[name], "replaces": replaces[name],
-                    "launches": launches[name], "max_abs_err": r["err"],
+                    "launches": launches[name], **extra,
+                    "max_abs_err": r["err"],
                     "exact": r["err"] == 0, "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": "bytes", "library_ms": None,
@@ -1903,6 +2506,7 @@ def run_phases(seed: int, device):
                 "source": PA_SOURCE,
                 "replaces": "src/repro/kernels/delta_paged_attention.py:74",
                 "launches": serve["serve"]["counts"]["paged"],
+                "forest_launches": forest_launches["paged"],
                 "max_abs_err": pa["max_abs_err"], "exact": False,
                 "ms": pa["ms"], "plain_ms": pa["plain_ms"],
                 "bound_ms": pa["bound_ms"], "bound_by": "bytes",

@@ -7,7 +7,8 @@
     page = ix.range_scan(lo, hi, max_items=128)        # ScanResult (+ cursor)
     keys, pays, n, hops, more = ix.successor_k(queries, 16)
 
-Pass ``device="cpu"`` to run on the CPU.
+``make_index("forest", num_shards=S, ...)`` gives the same handle over a
+key-range-sharded DeltaForest.  Pass ``device="cpu"`` to run on the CPU.
 """
 
 from repro_torch.api.index import (

@@ -3,7 +3,8 @@
 
 An ``Index`` is (static spec, state): ``spec`` holds the registered
 ``BackendSpec`` (a table of functions) and the backend's config; ``state``
-is the backend's tensors (a ``DeltaTree``).  Methods delegate through the
+is the backend's tensors (a ``DeltaTree``, or a ``Forest`` of stacked
+ones).  Methods delegate through the
 spec; ``capability`` says which ones a backend supports
 (``CapabilityError`` otherwise).  Reads take keys as a tensor, a numpy
 array or a list and return tensors on the index's device.
@@ -23,6 +24,16 @@ from repro_torch.api.opbatch import OpBatch
 
 if TYPE_CHECKING:
     from repro_torch.core.scan import ScanCursor, ScanResult
+
+
+def cfg_attr(cfg, name: str, default=None):
+    """A config knob on ``cfg`` or on its nested ``cfg.tree`` (the forest
+    config wraps a TreeConfig): the one rule for ``engine`` /
+    ``maintenance`` style knobs."""
+    v = getattr(cfg, name, None)
+    if v is None:
+        v = getattr(getattr(cfg, "tree", None), name, None)
+    return default if v is None else v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,12 +133,12 @@ class Index:
     @property
     def engine(self) -> str:
         """Active SearchEngine name."""
-        return getattr(self.spec.cfg, "engine", None) or "scalar"
+        return cfg_attr(self.spec.cfg, "engine") or "scalar"
 
     @property
     def maintenance(self) -> str:
         """Active maintenance policy string."""
-        return getattr(self.spec.cfg, "maintenance", None) or "eager"
+        return cfg_attr(self.spec.cfg, "maintenance") or "eager"
 
     def _require(self, flag: str, hook) -> None:
         if not getattr(self.capability, flag) or hook is None:

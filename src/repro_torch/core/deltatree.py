@@ -201,6 +201,14 @@ class DeltaTree(NamedTuple):
     alloc_fail: torch.Tensor  # () bool arena exhausted at some point (sticky)
 
 
+def shard_of(trees: DeltaTree, s: int) -> DeltaTree:
+    """Row ``s`` of a stacked (S, ...) DeltaTree (a forest's arenas) as a
+    DeltaTree of views: reads see the stacked tensors, and in-place writes
+    — every update and maintenance path here writes in place — land in
+    them, 0-d fields (``free_top``, ``root``, ``alloc_fail``) included."""
+    return DeltaTree(*(x[s] for x in trees))
+
+
 # --------------------------------------------------------------------------
 # construction and the state carry-over to and from numpy
 # --------------------------------------------------------------------------

@@ -19,9 +19,16 @@ host-driven `deltatree.scan_one` per lane, the lockstep engine with one
 `kernels.ops.delta_scan` launch for the whole batch; under non-eager
 maintenance one shared merge adds the pending overflow-buffer items.
 
+The lockstep engine also declares a ``forest_batch`` entry point
+(``ForestBatch``): fused cross-shard reads over a base-offset view of the
+forest's stacked shard arenas — one walk (or scan) launch with per-lane
+roots for the whole routed batch instead of one per shard.  The forest
+(`repro_torch.distributed.forest`) picks it through ``TreeConfig.engine``
+(DESIGN.md §8); the scalar engine declares none and keeps the dense
+per-shard dispatch as the reference.
+
 Not yet ported: ``engine="auto"`` (its table was measured on a TPU; the
-port gets one from H100 rows), the fused forest entry point and read
-statistics.
+port gets one from H100 rows) and read statistics.
 """
 
 from __future__ import annotations
@@ -38,6 +45,44 @@ from repro_torch.obs import trace as TR
 
 
 @dataclasses.dataclass(frozen=True)
+class ForestBatch:
+    """An engine's fused cross-shard forest entry point (DESIGN.md §8).
+
+    The hooks run over the stacked (S, ...) arena ``trees`` fused into one
+    base-offset arena view, every lane seeded at its owner shard's root
+    (``lid`` = per-lane shard index).  One kernel launch serves every
+    shard — no dense (S, K) scatter, no loop over shards.
+
+    lookup:    (cfg, trees, lid[K], keys[K], *, view=None)
+               -> (found, payload, hops)
+    successor: (cfg, trees, lid[K], keys[K], *, view=None)
+               -> (found[K], succ[K], has_min[S], mins[S]) — the
+               per-shard minimum probes (successor of KEY_MIN-1, one per
+               shard) ride the same chase as S extra lanes; the forest's
+               cross-shard suffix-min combine consumes them.
+    make_view: (cfg, trees) -> view — the fused view the hooks otherwise
+               build inline; a caller holding an unchanged arena across
+               reads builds it once and passes it back through ``view=``.
+               Part of it is a copy of the arena (the shifted child
+               links), so a view is stale once the arena's links change
+               (the forest's view cache says how it tells).
+    scan:      (cfg, trees, lid[K], starts[K], his[K], max_out, *,
+               view=None) -> (out[K, max_out], n, hops, more) — one
+               emit-cursor lane per (lane, shard) pair, each scanning its
+               own shard, the I5' buffered merge against that shard's
+               buffers included.
+
+    Results equal the dense per-shard dispatch bit for bit
+    (found/payload/succ/scan rows and per-lane hops).
+    """
+
+    lookup: Callable[..., Any]
+    successor: Callable[..., Any]
+    make_view: Callable[..., Any]
+    scan: Callable[..., Any]
+
+
+@dataclasses.dataclass(frozen=True)
 class SearchEngine:
     """One registered read path: functions over (cfg, tree, keys).
 
@@ -51,12 +96,16 @@ class SearchEngine:
                lane with start < key <= hi, key ascending; tree side only
                (the `scan` dispatch merges I5' buffered items).  None
                means the engine cannot serve range_scan / successor_k.
+    forest_batch: optional fused cross-shard read entry point
+               (``ForestBatch``); None means the forest reads through the
+               dense per-shard dispatch under this engine.
     """
 
     name: str
     lookup: Callable[..., Any]
     successor: Callable[..., Any]
     scan_batch: Callable[..., Any] | None = None
+    forest_batch: ForestBatch | None = None
 
 
 _ENGINES: dict[str, SearchEngine] = {}
@@ -200,6 +249,11 @@ def _merge_buffered_run(cfg, t, starts, his, out, n, more, max_out: int):
             more | (n + bic > max_out))
 
 
+def forest_batch(cfg) -> ForestBatch | None:
+    """``cfg.engine``'s fused forest entry point (None = dense dispatch)."""
+    return get_engine(cfg.engine).forest_batch
+
+
 # --------------------------------------------------------------------------
 # "scalar" — the reference engine (one host-driven descent per query)
 # --------------------------------------------------------------------------
@@ -332,18 +386,140 @@ def _lockstep_successor(cfg, t, keys: torch.Tensor, max_chase: int = 8):
 
 
 def _lockstep_scan(cfg, t, starts: torch.Tensor, his: torch.Tensor,
-                   max_out: int):
+                   max_out: int, root=None):
     """The emit-cursor scan frontier: one `delta_scan` call for the whole
     batch — every FIND / VERIFY pass of every lane inside one
-    `veb_scan_fused` launch."""
+    `veb_scan_fused` launch.  ``root`` as in `_lockstep_walk`: per-lane
+    seeds drive the fused multi-shard view, each lane in its own arena."""
     from repro_torch.kernels import ops as OPS
 
-    return OPS.delta_scan(t.value, t.mark, t.child, t.root,
+    return OPS.delta_scan(t.value, t.mark, t.child,
+                          t.root if root is None else root,
                           _walk_queries(cfg, starts), cfg.qpack(his),
                           height=cfg.height, max_out=max_out,
                           pmask=int(cfg.pmask))
 
 
+# ---- fused cross-shard frontier (the forest_batch entry point) ----
+
+
+def _fused_trees_view(cfg, trees):
+    """Stacked (S, M, ...) shard arenas -> one base-offset arena view.
+
+    value/child/root fuse through `kernels.veb_search.fuse_arenas` (the
+    shard base is applied to child links once, here); the SEARCHNODE-side
+    arrays (mark, buf, per-ΔNode counters) are reshapes of the stacked
+    tensors, so `DT.searchnode` indexes fused ΔNode ids directly, and
+    ``parent`` is shifted like ``child``.  Shard-scoped fields (root,
+    free_top, alloc_fail) keep shard 0's value and must not be read
+    through the view: walks always pass per-lane roots.  ``child`` and
+    ``parent`` are copies; everything else shows later in-place writes.
+    Returns (view, fused_roots (S,))."""
+    from repro_torch.kernels.veb_search import fuse_arenas
+
+    # a per-ΔNode field kept at its stacked (S, M, ...) shape would be
+    # indexed wrongly by fused ids: new fields must be taught to this view
+    assert set(DT.DeltaTree._fields) == {
+        "value", "mark", "child", "buf", "nlive", "bcount", "nchild",
+        "parent", "pslot", "alive", "free_stack", "free_top", "root",
+        "ins_flag", "del_flag", "alloc_fail",
+    }, "new DeltaTree field: teach _fused_trees_view how it fuses"
+    s, m = trees.value.shape[0], trees.value.shape[1]
+    value, child, roots = fuse_arenas(trees.value, trees.child, trees.root)
+    base = torch.arange(s, dtype=torch.int32, device=value.device) * m
+
+    def flat(x):
+        return x.reshape((s * m,) + x.shape[2:])
+
+    view = trees._replace(
+        value=value, child=child,
+        mark=flat(trees.mark), buf=flat(trees.buf),
+        nlive=flat(trees.nlive), bcount=flat(trees.bcount),
+        nchild=flat(trees.nchild),
+        parent=flat(torch.where(trees.parent >= 0,
+                                trees.parent + base[:, None], trees.parent)),
+        pslot=flat(trees.pslot), alive=flat(trees.alive),
+        ins_flag=flat(trees.ins_flag), del_flag=flat(trees.del_flag),
+        free_stack=flat(trees.free_stack), free_top=trees.free_top[0],
+        root=trees.root[0], alloc_fail=trees.alloc_fail[0],
+    )
+    return view, roots
+
+
+def _fused_lockstep_lookup(cfg, trees, lid, keys: torch.Tensor, *,
+                           view=None):
+    view, roots = _fused_trees_view(cfg, trees) if view is None else view
+    lv, lb, dn, hops, _ = _lockstep_walk(cfg, view, _walk_queries(cfg, keys),
+                                         roots[lid.long()])
+    found, payload = DT.searchnode(cfg, view, keys, lv, lb, dn)
+    return found, payload, hops
+
+
+def _fused_fold_buffered(cfg, trees, lid, keys, found, succ):
+    """The I5' buffered-floor fold of `successor`, per lane restricted to
+    its owner shard: a later shard's pending item must reach a query
+    through the cross-shard fallback (the shard-minimum probes), as on the
+    dense dispatch, or the suffix-min combine would count it twice.  The
+    same per-shard `buffered_floor` calls as the dense dispatch, one
+    column kept per lane, so the fold is bit-identical by construction.
+    Eager trees skip it."""
+    if cfg.maintenance == "eager":
+        return found, succ
+    floors = torch.stack([DT.buffered_floor(cfg, DT.shard_of(trees, s), keys)
+                          for s in range(trees.value.shape[0])])
+    bf = floors[lid.long(), torch.arange(keys.shape[0], device=keys.device)]
+    return _fold_floor(cfg, bf, found, succ)
+
+
+def _fused_lockstep_successor(cfg, trees, lid, keys: torch.Tensor,
+                              max_chase: int = 8, *, view=None):
+    """Fused successor: K query lanes plus one shard-minimum probe lane
+    per shard (successor of KEY_MIN-1 seeded at that shard's root) share
+    one chase.  Returns (found[K], succ[K], has_min[S], mins[S])."""
+    k = keys.shape[0]
+    s = trees.value.shape[0]
+    dev = keys.device
+    view, roots = _fused_trees_view(cfg, trees) if view is None else view
+    qk = torch.cat([keys, torch.full((s,), layout.KEY_MIN - 1,
+                                     dtype=torch.int32, device=dev)])
+    lid_all = torch.cat([lid.to(torch.int32),
+                         torch.arange(s, dtype=torch.int32, device=dev)])
+    found, succ = _successor_chase(cfg, view, qk, roots[lid_all.long()],
+                                   max_chase=max_chase)
+    found, succ = _fused_fold_buffered(cfg, trees, lid_all, qk, found, succ)
+    return found[:k], succ[:k], found[k:], succ[k:]
+
+
+def _fused_lockstep_scan(cfg, trees, lid, starts: torch.Tensor,
+                         his: torch.Tensor, max_out: int, *, view=None):
+    """Fused cross-shard scan: lane ``j`` is seeded at shard ``lid[j]``'s
+    fused root, so its run is exactly that shard's band of the range, and
+    one `delta_scan` launch serves every (lane, shard) pair the forest
+    tiles out.  Under non-eager maintenance each lane merges the I5'
+    buffered items of its *own* shard (shards partition the key space, so
+    a pending item only belongs in its owner shard's band), through the
+    same `_merge_buffered_run` the dense dispatch runs per shard."""
+    view, roots = _fused_trees_view(cfg, trees) if view is None else view
+    out, n, hops, more = _lockstep_scan(cfg, view, starts, his, max_out,
+                                        root=roots[lid.long()])
+    if cfg.maintenance == "eager":
+        return out, n, hops, more
+    for s in range(trees.value.shape[0]):
+        sel = lid == s
+        if not bool(sel.any()):
+            continue
+        out[sel], n[sel], more[sel] = _merge_buffered_run(
+            cfg, DT.shard_of(trees, s), starts[sel], his[sel], out[sel],
+            n[sel], more[sel], max_out)
+    return out, n, hops, more
+
+
 register_engine(SearchEngine(
     name="lockstep", lookup=_lockstep_lookup, successor=_lockstep_successor,
-    scan_batch=_lockstep_scan))
+    scan_batch=_lockstep_scan,
+    forest_batch=ForestBatch(
+        lookup=_fused_lockstep_lookup,
+        successor=_fused_lockstep_successor,
+        make_view=_fused_trees_view,
+        scan=_fused_lockstep_scan,
+    )))

@@ -244,3 +244,31 @@ def veb_scan_fused(value: torch.Tensor, mark: torch.Tensor,
 
 
 veb_scan_fused.launches = 0
+
+
+def fuse_arenas(value: torch.Tensor, child: torch.Tensor, root: torch.Tensor):
+    """Concatenate stacked shard arenas into one base-offset arena view.
+
+    value (S, M, UB) / child (S, M, leaf_cap) / root (S,) are S independent
+    arenas whose ΔNode ids are arena-local.  The fused view is one
+    (S*M, ...) arena in which shard ``s``'s ids shift by ``s*M``: the base
+    offset is applied to child links and roots once, here, never per walk
+    round, so a walk with per-query roots drives one frontier across every
+    shard.  Child links of -1 (none) are kept; a walk seeded at shard
+    ``s``'s fused root only ever reaches shard ``s``'s rows (links never
+    cross arenas), so its results equal a walk of that shard alone.
+
+    ``value`` comes back as a reshape of the stacked tensor (no copy, so
+    later in-place writes to the arena show through); ``child`` is a new
+    tensor and goes stale when the arena's links change.  Returns
+    (fused_value (S*M, UB), fused_child (S*M, leaf_cap), fused_roots (S,)
+    int32).
+    """
+    s, m = value.shape[0], value.shape[1]
+    if s * m > 2**31 - 1:
+        raise ValueError(f"fuse_arenas: {s} x {m} ΔNodes overflow int32 ids")
+    base = torch.arange(s, dtype=torch.int32, device=value.device) * m
+    child = torch.where(child >= 0, child + base[:, None, None], child)
+    return (value.reshape((s * m,) + value.shape[2:]),
+            child.reshape((s * m,) + child.shape[2:]),
+            root.to(torch.int32) + base)

@@ -19,9 +19,10 @@ Each ``step()``, as in the JAX package:
   7. barrier — ``MaintenanceWorker.maybe_drain`` runs off the decode path,
      triggered by the pending high-water mark.
 
-Not ported yet (ROADMAP.md, Queue 1): the fused-view cache counters
-(``view_hits`` / ``view_builds`` record 0 until the forest lands) and
-``metrics()`` (raises until ``obs/export.py`` lands).
+``view_hits`` / ``view_builds`` count the forest's fused-view cache over
+each step (non-zero only with a forest-backed pager).  Not ported yet
+(ROADMAP.md, Queue 1): ``metrics()`` (raises until ``obs/export.py``
+lands).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import Index
+from repro_torch.distributed import forest as DF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 from repro_torch.obs import trace as OT
@@ -144,17 +146,22 @@ class ServeScheduler:
 
     def step(self) -> dict[int, int]:
         """One scheduler step; returns {sid: token} for decoded lanes.
-        Records one ``ServeStats`` sample whenever any work happened."""
+        Records one ``ServeStats`` sample whenever any work happened —
+        latency, queue depth, admission waits, combined ops, fused-view
+        cache hits and builds (a forest-backed pager's), pending
+        high-water, worker drains."""
         t0 = time.perf_counter()
+        v0 = DF.fused_view_cache_stats()
         with OT.span("serve.sched_step"):
             out, info = self._step()
+        v1 = DF.fused_view_cache_stats()
         # combining counts the staged batches and the probe service
         total_combined = self.pager.stats["combined"] + self._probe_combined
         info.update(
             queue_depth=self.queue.depth,
             combined=total_combined - self._combined_mark,
-            view_hits=0,      # the fused forest view is not ported yet
-            view_builds=0,
+            view_hits=v1["hits"] - v0["hits"],
+            view_builds=v1["builds"] - v0["builds"],
         )
         self._combined_mark = total_combined
         self.last_step_info = info

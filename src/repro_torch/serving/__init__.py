@@ -3,16 +3,18 @@
 
 The engine names resolve lazily: ``serving.engine`` pulls in the
 scheduler (`repro_torch.serve`), which imports the pager from this
-package.  The sharded pager waits for the forest and raises.
+package.  ``ShardedDeltaPager`` keeps the same map on a DeltaForest.
 """
 
 from repro_torch.serving.pager import (
     DeltaPager,
     PagerConfig,
     PagerError,
+    make_pager,
+)
+from repro_torch.serving.sharded_pager import (
     ShardedDeltaPager,
     ShardedPagerConfig,
-    make_pager,
 )
 
 __all__ = [

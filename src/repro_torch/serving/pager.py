@@ -18,8 +18,7 @@ numpy; the index lives on ``device`` (``cuda`` unless the caller names
 the CPU), and `block_tables` returns its table there, so the paged
 attention kernel reads it without a round trip through the host.
 
-The sharded pager waits for the forest (ROADMAP.md, Queue 1):
-`ShardedPagerConfig` and `ShardedDeltaPager` raise.
+`serving.sharded_pager` fans the same map out over a DeltaForest.
 """
 
 from __future__ import annotations
@@ -252,31 +251,14 @@ class DeltaPager:
         return table.reshape(b, max_blocks).to(torch.int32)
 
 
-@dataclasses.dataclass(frozen=True)
-class ShardedPagerConfig(PagerConfig):
-    """The forest-backed pager's config: waits for the forest."""
-
-    num_shards: int = 4
-
-    def __post_init__(self):
-        raise NotImplementedError(
-            "ShardedPagerConfig needs the forest backend, which is not "
-            "ported to repro_torch yet (ROADMAP.md, Queue 1, the forest)")
-
-
-class ShardedDeltaPager(DeltaPager):
-    """The forest-backed pager: waits for the forest."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedDeltaPager needs the forest backend, which is not "
-            "ported to repro_torch yet (ROADMAP.md, Queue 1, the forest)")
-
-
 def make_pager(cfg: PagerConfig, index: Index | None = None,
                device=None) -> DeltaPager:
     """Pager for a config on ``device``; ``index`` overrides the config's
     default backend (any map-capable handle)."""
+    from repro_torch.serving.sharded_pager import (
+        ShardedDeltaPager, ShardedPagerConfig,
+    )
+
     if isinstance(cfg, ShardedPagerConfig):
-        return ShardedDeltaPager(cfg, index)
+        return ShardedDeltaPager(cfg, index, device)
     return DeltaPager(cfg, index, device)

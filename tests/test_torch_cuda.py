@@ -398,3 +398,106 @@ def test_cuda_serve_engine_equals_cpu(cuda):
                           gp.index.state):
         assert torch.equal(a, b.cpu()), name
     assert cl == 0 and gl == cfg.num_layers * len(gb)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("payload_bits", [0, 12])
+def test_cuda_kernels_on_fused_forest_view(cuda, payload_bits):
+    """On the fused view of an 8-shard forest (per-lane roots at every
+    shard's root), the walk and scan kernels equal their plain versions
+    exactly: lanes in batch order (most blocks mix shards, so most lanes
+    miss the block's staged root), lanes sorted by shard, and the scan's
+    shard-major tiling at k % 4 != 0 (blocks straddle two shards)."""
+    from repro_torch.core import engine as TE
+    from repro_torch.distributed import forest as TF
+    from repro_torch.distributed import router as TR
+    from repro_torch.kernels import ops as TOPS
+
+    fcfg = TF.ForestConfig(num_shards=8, tree=TDT.TreeConfig(
+        height=7, max_dnodes=1024, buf_cap=16, payload_bits=payload_bits,
+        engine="lockstep"))
+    rng = np.random.default_rng(20 + payload_bits)
+    vals = np.unique(rng.integers(1, 400_000, 40_000))
+    f = TF.bulk_build(fcfg, vals, vals % 4096 if payload_bits else None,
+                      device=cuda)
+    for _ in range(2):
+        kinds = rng.choice([1, 2], 2048).astype(np.int32)
+        keys = rng.integers(1, 400_000, 2048).astype(np.int32)
+        f, _, _ = TF.update_batch(fcfg, f, kinds, keys)
+    cfg = fcfg.tree
+    view, roots = TE._fused_trees_view(cfg, f.trees)
+    cap = cfg.walk_round_cap
+    for k in (1, 33, 1000, 4093):
+        keys = torch.as_tensor(rng.integers(0, 410_000, k).astype(np.int32),
+                               device=cuda)
+        sid = TR.shard_ids(f.splits, keys)
+        for order in ("batch", "sorted"):
+            lanes = (torch.arange(k, device=cuda) if order == "batch"
+                     else torch.argsort(sid, stable=True))
+            q = TE._walk_queries(cfg, keys[lanes]).contiguous()
+            r = roots[sid[lanes].long()].contiguous()
+            args = (view.value, view.child, r, q)
+            got = TVS.veb_walk_fused(*args, height=7, max_rounds=cap)
+            want = TREF.ref_delta_walk_fused(*args, height=7, max_rounds=cap)
+            _equal(want, got, WALK, ("fused walk", k, order))
+    for k, max_out in ((13, 16), (129, 128), (512, 128)):
+        st = rng.integers(0, 400_000, k).astype(np.int32)
+        hi = (st + rng.choice([50, 5_000, 400_000], k)).astype(np.int32)
+        lid = torch.arange(8, dtype=torch.int32,
+                           device=cuda).repeat_interleave(k)
+        starts = TE._walk_queries(cfg, torch.as_tensor(st, device=cuda)
+                                  .repeat(8)).contiguous()
+        his = cfg.qpack(torch.as_tensor(hi, device=cuda).repeat(8))
+        caps = TOPS.scan_round_cap(7, view.value.shape[0], max_out)
+        args = (view.value, view.mark, view.child,
+                roots[lid.long()].contiguous(), starts, his.contiguous())
+        kw = dict(height=7, max_out=max_out, pmask=int(cfg.pmask),
+                  max_rounds=caps)
+        _equal(TREF.ref_delta_scan_fused(*args, **kw),
+               TVS.veb_scan_fused(*args, **kw), SCAN, ("scan", k, max_out))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("policy", ["eager", "deferred"])
+def test_cuda_forest_equals_cpu_forest(cuda, policy):
+    """The forest on the card (fused and dense reads, updates, scans)
+    leaves every shard's arena and every read equal to the same run on the
+    CPU; the fused search launches the walk kernel once per batch."""
+    from repro_torch.distributed import forest as TF
+
+    rng = np.random.default_rng(5)
+    init = np.unique(rng.integers(1, 60_000, 6_000)).astype(np.int32)
+    kw = dict(num_shards=8, height=5, max_dnodes=1024, buf_cap=8,
+              engine="lockstep", maintenance=policy)
+    gix = make_index("forest", initial=init, device=cuda, **kw)
+    cix = make_index("forest", initial=init, device="cpu", **kw)
+    gdense = make_index("forest", initial=init, device=cuda, fused=False,
+                        **kw)
+    for step in range(5):
+        kinds = rng.choice([0, 1, 1, 2], 509).astype(np.int32)
+        keys = rng.integers(1, 62_000, 509).astype(np.int32)
+        keys[:64] = (rng.choice(init, 8)[:, None] + np.arange(1, 9)).ravel()
+        kinds[:64] = 1
+        n0 = TVS.veb_walk_fused.launches
+        got = gix.search(keys)
+        assert TVS.veb_walk_fused.launches == n0 + 1
+        _equal(cix.search(keys), got, ("found", "hops"), step)
+        _equal(got, gdense.search(keys), ("found", "hops"), step)
+        _equal(cix.successor(keys), gix.successor(keys), ("found", "succ"),
+               step)
+        st = keys[:61]
+        _equal(cix.successor_k(st, 9), gix.successor_k(st, 9),
+               ("keys", "pays", "n", "hops", "more"), step)
+        batch = OpBatch.mixed(kinds, keys)
+        gix, gres, gst = gix.update(batch)
+        gdense, _, _ = gdense.update(batch)
+        cix, cres, cst = cix.update(batch)
+        assert torch.equal(gres.cpu(), cres) and gst == cst, step
+        for name, a, b in zip(TDT.DeltaTree._fields, cix.state.trees,
+                              gix.state.trees):
+            assert torch.equal(a, b.cpu()), (step, name)
+    if policy == "deferred":
+        assert int((gix.state.trees.bcount.sum(1) > 0).sum()) >= 2
+    assert [k for k, _ in gix.live_items()] == \
+        [k for k, _ in cix.live_items()]
+    assert not gix.alloc_failed() and not TF.alloc_failed(cix.state)

@@ -35,7 +35,11 @@ from repro_torch.serving import (
     ShardedPagerConfig,
 )
 
-from _torch_parity import SERVE_PRELUDE, check_pager, jax_npz, prefixed, serve_model
+from _torch_parity import (
+    SERVE_PRELUDE, SHARDED_CHURN, SHARDED_TRACE, check_pager,
+    check_sharded_pager, jax_npz, jax_sharded, prefixed, record_step_views,
+    serve_model,
+)
 
 STATIC = dict(num_pages=64, page_size=4, max_blocks=64,
               tree_height=4)
@@ -213,16 +217,60 @@ def test_serve_and_scan_stats_equal_jax():
     assert jsc.asdict() == tsc.asdict()
 
 
+# ------------------------------------------------------ sharded pager ---
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_rec(tmp_path_factory):
+    return jax_sharded(tmp_path_factory)
+
+
+def test_sharded_scheduler_view_counters_equal_jax(jax_sharded_rec):
+    """The churn trace over a forest-backed pager (lockstep reads, fused
+    frontier): every step's fused-view cache hits and builds, their
+    ServeStats totals, every request's tokens and the final pager state
+    (every shard's arena) equal the JAX scheduler's; the view was both
+    built and reused."""
+    from repro_torch.distributed import forest as TF
+    from repro_torch.serving import ShardedDeltaPager
+
+    rec = jax_sharded_rec
+    model = serve_model(rec)
+    TF.reset_fused_view_cache()
+    sch = ServeScheduler(model.cfg, model, ShardedPagerConfig(**SHARDED_CHURN),
+                         SchedulerConfig(max_live=3))
+    assert isinstance(sch.pager, ShardedDeltaPager)
+    assert sch.pager.index.capability.fused_forest
+    views = record_step_views(sch)
+    plans = synth_trace(14, seed=11, vocab=model.cfg.vocab_size,
+                        **SHARDED_TRACE)
+    sch.run_trace(plans)
+    np.testing.assert_array_equal(rec["sched/views"], views)
+    obs = sch.obs.asdict()
+    np.testing.assert_array_equal(rec["sched/obs"],
+                                  [obs["view_hits"], obs["view_builds"]])
+    cache = TF.fused_view_cache_stats()
+    np.testing.assert_array_equal(rec["sched/cache"],
+                                  [cache["builds"], cache["hits"]])
+    assert obs["view_hits"] > 0 and obs["view_builds"] > 0
+    assert set(sch.active) == {int(k) for k in prefixed(rec, "sched/tokens")}
+    for sid, req in sch.active.items():
+        assert req.out == rec[f"sched/tokens/{sid}"].tolist(), sid
+    check_sharded_pager(rec, "sched", sch.pager)
+
+
 # ------------------------------------------------------- not yet ported ---
 
 
 def test_unported_serving_surfaces_raise():
-    """The sharded pager (forest) and metrics() (obs/export) raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedPagerConfig()
+    """metrics() (obs/export) raises; the sharded pager, which raised
+    until the forest was ported, now builds a forest-backed pager."""
     cfg = get_smoke_config("granite_8b")
-    sch = ServeScheduler(cfg, Transformer(cfg, device="cpu"),
-                         PagerConfig(**STATIC))
+    model = Transformer(cfg, device="cpu")
+    sch = ServeScheduler(cfg, model, PagerConfig(**STATIC))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sch.metrics()
     assert json.dumps(sch.obs.asdict())
+    sharded = ServeScheduler(cfg, model, ShardedPagerConfig(**STATIC))
+    assert sharded.pager.index.backend == "forest"
+    assert sharded.pager.index.capability.sharded

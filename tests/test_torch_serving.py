@@ -14,7 +14,12 @@ port runs the same scenarios on the CPU from the same weights:
   the same tokens, block tables, free list and pager stats, each step's
   logits within 1e-5 (float32 smoke config; the products sum in another
   order than XLA's);
-- the port's engine against the port's dense-cache decode.
+- the port's engine against the port's dense-cache decode;
+- the sharded pager (a DeltaForest index) on the script of
+  `tests/test_forest.py::test_sharded_pager_x64_8_devices`, on one device:
+  block tables, stats, free list and every shard's arena equal after every
+  op; and one sequence whose ascending blocks chain ΔNodes deeper than the
+  reference's walk cap still resolves every block.
 
 The scheduler under churn is in `test_torch_serve_sched.py`.
 """
@@ -35,10 +40,15 @@ from repro_torch.serving.pager import DeltaPager
 
 from _torch_parity import (
     SERVE_PRELUDE,
+    SHARDED_PAGER,
     check_pager,
+    check_sharded_pager,
     jax_npz,
+    jax_sharded,
     prefixed,
+    run_sharded_script,
     serve_model,
+    tree_depth,
 )
 
 LOGIT_TOL = 1e-5   # float32 smoke config; XLA and torch sum in other orders
@@ -293,3 +303,59 @@ def test_engine_matches_port_dense_decode():
     assert eng.pager.stats["searches"] > 0
 
 
+
+
+# -------------------------------------------------------- sharded pager ---
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_rec(tmp_path_factory):
+    return jax_sharded(tmp_path_factory)
+
+
+@pytest.mark.parametrize("engine", ["scalar", "lockstep"])
+def test_sharded_pager_equals_jax(jax_sharded_rec, engine):
+    """The JAX sharded pager's script (allocate, block tables, grow, free)
+    on one device: block tables, stats, free list and every shard's arena
+    equal JAX's after every op (JAX reads with its scalar engine)."""
+    from repro_torch.serving import ShardedDeltaPager, ShardedPagerConfig
+
+    rec = jax_sharded_rec
+    pc = ShardedPagerConfig(**SHARDED_PAGER, engine=engine)
+    assert pc.forest_config.key_max == 4 * pc.band == 4 * 8 * 64
+    pg = ShardedDeltaPager(pc, device="cpu")
+    tables = run_sharded_script(
+        pg, lambda i, p: check_sharded_pager(rec, f"script/{i}", p))
+    assert len(tables) == 3
+    for i, t in enumerate(tables):
+        np.testing.assert_array_equal(t, rec[f"script/tables/{i}"],
+                                      err_msg=str(i))
+    assert sorted(pg.free_pages) == list(range(SHARDED_PAGER["num_pages"]))
+
+
+def test_sharded_pager_deep_sequence_resolves():
+    """One sequence's ascending blocks, inserted 16 at a time, chain
+    ΔNodes in its shard far deeper than the walk cap a balanced arena of
+    that size would get (14): the forest's walks are capped at the
+    per-shard ``max_dnodes``, so every block resolves and every item
+    stays."""
+    from repro_torch.distributed import forest as TF
+    from repro_torch.kernels.ops import walk_round_cap
+    from repro_torch.serving import ShardedDeltaPager, ShardedPagerConfig
+
+    pc = ShardedPagerConfig(num_pages=256, page_size=4, max_seqs=8,
+                            max_blocks=128, tree_height=4, num_shards=4,
+                            engine="lockstep")
+    tcfg = pc.forest_config.tree
+    assert walk_round_cap(tcfg.height, tcfg.max_dnodes) == 14
+    assert tcfg.walk_round_cap == tcfg.max_dnodes == 64
+    pg = ShardedDeltaPager(pc, device="cpu")
+    pages = []
+    for _ in range(6):
+        pages += pg.allocate(0, 16)
+    assert tree_depth(TF.shard_tree(pg.index.state, 0)) > 14
+    bt = pg.block_tables([0], 96).numpy()
+    np.testing.assert_array_equal(bt[0], pages)
+    assert len(pg.index.live_items()) == 96
+    pg.free_seq(0)
+    assert len(pg.index.live_items()) == 0
