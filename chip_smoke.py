@@ -115,16 +115,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
    leg over ``ShardedPagerConfig(num_shards=4)``: tokens equal the dense
    decode's, block tables the single-tree pager's at every step, and the
    fused view reused (``view_hits`` > 0).
+7. The paper's comparison structures and the read-path accounting.
+   7.1: ``benchmarks/table1_transfers.py --full`` (1,048,576 draws in
+   [1, 5,000,000), 500 queries): ``deltatree`` (height 7, ``max_dnodes``
+   1 << 17, buf_cap 16), ``static_veb``, ``pointer_bst``,
+   ``sorted_array`` and the ΔTree UB=N (height ceil(log2 n) + 2, 4
+   ΔNodes; the walk kernels take heights 1-12, so a lockstep read on it
+   must raise): mean elements touched and distinct 16- / 128-element
+   blocks a search (the host touch model), the ordering static_veb <
+   sorted_array < pointer_bst at both; on the deltatree row
+   ``obs.transfers.compare_model`` replays on the card (ratio 1.0 exactly
+   at B = 8, 16, 32, 64), and a ``collect_stats`` + ``collect_transfers``
+   search through kernel 2 must equal a plain read and ``measure``;
+   ``fit_log_b`` on the card, r2 >= 0.98.  7.2: ``fig12_big_tree.py``'s
+   backends on the phase-3 keys at batch 1024, 0 % and 10 % updates,
+   30,000 ops (run_index's stream: two warm-up steps, the baselines' 64
+   update rows a step), static_veb at 0 % only, every step against the
+   oracle: ops/s, search and update medians beside ``deltatree``
+   (lockstep), which runs with ``collect_stats`` as run_index turns it on
+   and without, as phase 3 runs it.  Cut: rates 1 / 20 / 100 and batch 256 are not run.  7.3:
+   three Fig. 12 steps of the ΔTree (search, eager update) traced with
+   ``repro_torch.obs.trace.capture``: device busy and wall time a step and
+   the idle share.  7.4: an S = 4 forest at phase 6's size collecting
+   stats, fused and dense ``ReadStats`` equal, router lanes summing to the
+   batch; phase 5.2's float32 leg over ``ShardedPagerConfig(num_shards=4)``
+   whose index collects stats (tokens equal to a stats-free run),
+   ``ServeScheduler.metrics()`` in dict, Prometheus and JSON form with the
+   search, router and transfers groups.
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
-reads apart) sets the launch counters to 0 just before it and reads them
-just after: its kernels must have launched (the paged kernel once per
-layer per decode step), and no plain version may have run.
+reads apart, each phase 7 run) sets the launch counters to 0 just before
+it and reads them just after: its kernels must have launched (the paged
+kernel once per layer per decode step), and no plain version may have
+run.
 
 The second-to-last line is ``{"kernels": [...]}`` (rows 2-4 also carry
 ``forest_launches``: kernel 2's in phase 6.2's fused runs, kernel 3's in
-6.1's fused reads, kernel 4's in 6.4's sharded serve run); the last is
-``{"ok": true, "device": {...}}``.
+6.1's fused reads, kernel 4's in 6.4's sharded serve run; rows 2 and 4
+``phase7_launches``); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2401,6 +2429,457 @@ def forest_phase(seed: int, device) -> dict:
                 elapsed_s=elapsed)
 
 
+# --------------------------------------------------------------------------
+# phase 7: the paper's comparison structures and the read-path accounting
+# --------------------------------------------------------------------------
+
+TABLE1_INITIAL = 1 << 20        # benchmarks/table1_transfers.py INITIAL
+TABLE1_QUERIES = 500            # table1_transfers.py --full n_queries
+TABLE1_DT = dict(height=7, max_dnodes=1 << 17, buf_cap=16)  # its deltatree
+TABLE1_ROWS = ("deltatree", "static_veb", "pointer_bst", "sorted_array")
+FIG12_RATES = (0, 10)           # fig12_big_tree.py --quick update rates
+FIG12_WARMUP = 2                # run_index's warm-up steps, off the clock
+UPDATE_CHUNK = 64               # benchmarks/common.py: baselines' update
+#                                 rows a step (a fixed-width OpBatch)
+IDLE_STEPS = 3                  # Fig. 12 steps traced for the idle share
+STATS_K = 1021                  # 7.4 forest read batch: no multiple of 4
+
+
+def table1_row(label: str, ix, q) -> dict:
+    """benchmarks/table1_transfers.py's row: the mean elements a search
+    touches (``loads``) and distinct 16- / 128-element blocks, from the
+    backend's host touch trace."""
+    import numpy as np
+
+    from repro_torch.core.baselines import count_block_transfers
+
+    t0 = time.perf_counter()
+    tf = ix.touch_fn()
+    check(tf is not None, f"table 1: {label} has no touch trace")
+    row = dict(backend=label,
+               loads=float(np.mean([len(tf(int(k))) for k in q])),
+               blocks_b16=count_block_transfers(tf, q, 16),
+               blocks_b128=count_block_transfers(tf, q, 128))
+    row["model_s"] = time.perf_counter() - t0
+    return row
+
+
+def same_stats(a, b, where: str) -> None:
+    """Two stats tuples (nested ReadStats included) equal field for field."""
+    import torch
+
+    check(type(a) is type(b), f"{where}: {type(a)} vs {type(b)}")
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None or y is None:
+            check(x is None and y is None, f"{where}.{name}: one is None")
+        elif hasattr(x, "_fields"):
+            same_stats(x, y, f"{where}.{name}")
+        else:
+            check(x.dtype == y.dtype and torch.equal(x, y),
+                  f"{where}.{name}: {x.tolist()} vs {y.tolist()}")
+
+
+def deltatree_transfers(ix, q) -> dict:
+    """7.1 on the ``deltatree`` row: ``compare_model`` replays on the card
+    (ratio 1.0 exactly at every B), and a ``collect_stats`` +
+    ``collect_transfers`` search through kernel 2 gives the found / hops
+    of a plain read of the same batch and the TransferStats of
+    ``measure``.  Returns the ratios and the stats read's counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import deltatree as DT
+    from repro_torch.obs import transfers as OTR
+
+    cm = OTR.compare_model(ix.cfg, ix.state, q)
+    check(all(v["ratio"] == 1.0 for v in cm.values()),
+          f"table 1: measured / model transfers {cm}")
+    cfg = dataclasses.replace(ix.cfg, collect_stats=True,
+                              collect_transfers=True)
+    reset_counts()
+    found, hops, rs = DT.search_batch(cfg, ix.state, q)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["fused"] == 1 and counts["plain"] == 0,
+          f"table 1: the stats search ran {counts}")
+    found0, hops0 = ix.search(q)
+    check(torch.equal(found, found0) and torch.equal(hops, hops0),
+          "table 1: the stats search differs from a plain read")
+    same_stats(rs.transfers, OTR.measure(ix.cfg, ix.state, q),
+               "table 1 transfers")
+    check(int(rs.search.queries) == q.size, "table 1: search stats")
+    return dict(ratios={b: v["ratio"] for b, v in cm.items()},
+                measured_b16=cm[16]["measured"], counts=counts,
+                read_stats=dict(search=rs.search.asdict(),
+                                transfers=rs.transfers.asdict()),
+                hops_mean=float(np.mean(hops.cpu().numpy())))
+
+
+def table1_phase(seed: int, device) -> dict:
+    """7.1: benchmarks/table1_transfers.py --full on the card: 1,048,576
+    draws in [1, 5,000,000), 500 queries, its four backends and the ΔTree
+    UB=N row; the deltatree row's transfers checked three ways; the
+    ordering static_veb < sorted_array < pointer_bst; ``fit_log_b``."""
+    import numpy as np
+
+    from repro_torch.api import make_index
+    from repro_torch.obs import transfers as OTR
+
+    rng = np.random.default_rng(seed)
+    vals = np.unique(rng.integers(1, KEY_MAX, size=TABLE1_INITIAL)
+                     .astype(np.int32))
+    q = rng.integers(1, KEY_MAX, size=TABLE1_QUERIES).astype(np.int32)
+    rows, dt = [], None
+    for name in TABLE1_ROWS:
+        kw = dict(TABLE1_DT, engine="lockstep") if name == "deltatree" else {}
+        t0 = time.perf_counter()
+        ix = make_index(name, initial=vals, device=device, **kw)
+        build_s = time.perf_counter() - t0
+        rows.append(dict(table1_row(name, ix, q), build_s=build_s))
+        if name == "deltatree":
+            dt = deltatree_transfers(ix, q)
+        log(json.dumps({"table1": rows[-1]}))
+        del ix
+    h_big = int(np.ceil(np.log2(vals.size))) + 2
+    t0 = time.perf_counter()
+    big = make_index("deltatree", initial=vals, height=h_big, max_dnodes=4,
+                     buf_cap=16, engine="lockstep", device=device)
+    build_s = time.perf_counter() - t0
+    rows.append(dict(table1_row(f"deltatree_ubN(h={h_big})", big, q),
+                     build_s=build_s))
+    log(json.dumps({"table1": rows[-1]}))
+    try:           # the walk kernels take heights 1..12 (ROADMAP Queue 3)
+        big.search(q[:8])
+        check(False, f"a lockstep read at height {h_big} did not raise")
+    except ValueError as e:
+        check("height" in str(e), f"UB=N read: {e}")
+    del big
+    by = {r["backend"]: r for r in rows}
+    for b in ("blocks_b16", "blocks_b128"):
+        check(by["static_veb"][b] < by["sorted_array"][b]
+              < by["pointer_bst"][b], f"table 1 ordering at {b}: {rows}")
+    t0 = time.perf_counter()
+    fit = OTR.fit_log_b(device=device)
+    fit_s = time.perf_counter() - t0
+    check(fit["r2"] >= 0.98 and len(fit["points"]) == 11,
+          f"fit_log_b: {fit}")
+    return dict(keys=int(vals.size), queries=int(q.size), rows=rows,
+                deltatree=dt, fit=dict(fit, seconds=fit_s))
+
+
+def fig12_traffic(seed: int, rate: int, initial, chunked: bool) -> dict:
+    """run_index's stream at one update rate (batch 1024, its rng seeded
+    with ``seed``, 2 warm-up steps then TOTAL_OPS // 1024): per step the
+    search keys and the update batch the backend applies (the baselines
+    take the first ``UPDATE_CHUNK`` update rows of the step, padded with
+    search rows; the ΔTree the whole batch), with the oracle's answers."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    live = set(initial.tolist())
+    steps = []
+    for _ in range(FIG12_WARMUP + TOTAL_OPS // BATCH):
+        kinds = mixed_kinds(rng, BATCH, rate)
+        keys = rng.integers(1, KEY_MAX, size=BATCH).astype(np.int32)
+        found = np.fromiter((k in live for k in keys.tolist()), bool, BATCH)
+        uidx = np.flatnonzero(kinds)
+        if chunked:
+            uidx = uidx[:UPDATE_CHUNK]
+            ukinds = np.zeros(UPDATE_CHUNK, np.int32)
+            ukeys = np.zeros(UPDATE_CHUNK, np.int32)
+            ukinds[: uidx.size] = kinds[uidx]
+            ukeys[: uidx.size] = keys[uidx]
+        else:
+            ukinds, ukeys = kinds, keys
+        res = np.zeros(ukinds.size, bool)
+        for i in np.flatnonzero(ukinds):
+            k = int(ukeys[i])
+            if ukinds[i] == 1:
+                res[i] = k not in live
+                live.add(k)
+            else:
+                res[i] = k in live
+                live.discard(k)
+        steps.append(dict(keys=keys, found=found, ukinds=ukinds, ukeys=ukeys,
+                          res=res, ops=int((kinds == 0).sum() + uidx.size)))
+    return dict(steps=steps, size=len(live))
+
+
+def fig12_run(ix, traffic, rate: int, label: str) -> dict:
+    """7.2: one backend at one update rate through the Index API, each
+    step's search and update results checked against the oracle (off the
+    clock).  Host-clocked, each call ending in a synchronize; ops/s counts
+    run_index's ops (search rows plus applied update rows) over the timed
+    steps' search and update time.  Under ``collect_stats`` the timed
+    steps' SearchStats merge on the card, as run_index's do."""
+    import torch
+
+    from repro_torch.api import OpBatch
+
+    reset_counts()
+    search_s, update_s, ops, acc = [], [], 0, None
+    for i, st in enumerate(traffic["steps"]):
+        t0 = time.perf_counter()
+        res = ix.search(st["keys"])
+        found = res[0]
+        if ix.collect_stats and i >= FIG12_WARMUP:
+            acc = res[-1].search if acc is None else acc.merge(res[-1].search)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if rate:
+            ix, res = ix.insert_delete(OpBatch.mixed(st["ukinds"],
+                                                     st["ukeys"]))
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check((found.cpu().numpy() == st["found"]).all(),
+              f"{label}: search differs from the oracle at step {i}")
+        if rate:
+            check((res.cpu().numpy() == st["res"]).all(),
+                  f"{label}: update results differ from the oracle at "
+                  f"step {i}")
+        if i >= FIG12_WARMUP:
+            search_s.append(t1 - t0)
+            update_s.append(t2 - t1)
+            ops += st["ops"]
+    counts = read_counts()
+    check(counts["plain"] == 0, f"{label}: a plain version ran ({counts})")
+    check(ix.backend != "deltatree" or counts["fused"] > 0,
+          f"{label}: the walk kernel did not run ({counts})")
+    check(ix.size() == traffic["size"], f"{label}: size differs")
+    return ix, dict(backend=ix.backend, collect_stats=ix.collect_stats,
+                    hops_mean=acc.asdict()["hops_mean"] if acc else None,
+                    update_pct=rate, batch=BATCH,
+                    ops_per_s=ops / (sum(search_s) + sum(update_s)),
+                    search_ms=statistics.median(search_s) * 1e3,
+                    update_ms=(statistics.median(update_s) * 1e3
+                               if rate else None),
+                    steps=len(search_s), counts=counts)
+
+
+def index_idle_share(ix, rng) -> dict:
+    """7.3: ``IDLE_STEPS`` Fig. 12 steps (a 1024-key search, then the
+    eager update of the batch at 10 % updates) timed without the
+    profiler, then as many under `repro_torch.obs.trace.capture`: device
+    busy time a step (one stream, so the sum of kernel times), wall time
+    a step and the idle share, 1 - busy / wall, over the same span."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import OpBatch
+    from repro_torch.obs import trace as OT
+
+    def steps(ix) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IDLE_STEPS):
+            kinds = mixed_kinds(rng, BATCH, UPDATE_PCT)
+            keys = rng.integers(1, KEY_MAX, BATCH).astype(np.int32)
+            ix.search(keys)
+            ix.insert_delete(OpBatch.mixed(kinds, keys))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / IDLE_STEPS
+
+    untraced_ms = steps(ix)
+    reset_counts()
+    with OT.capture(str(ROOT / "build" / "phase7_trace")) as prof:
+        step_ms = steps(ix)
+    counts = read_counts()
+    check(counts["fused"] > 0 and counts["plain"] == 0,
+          f"idle share: {counts}")
+    busy = device_split(prof, IDLE_STEPS)["busy"]
+    return dict(steps=IDLE_STEPS, step_ms=step_ms,
+                untraced_step_ms=untraced_ms, busy_ms=busy,
+                idle_share=1 - busy / step_ms if busy > 0 else None,
+                counts=counts)
+
+
+def fig12_phase(keys, seed: int, device) -> dict:
+    """7.2-7.3: fig12_big_tree.py's backends on the phase-3 key set at
+    batch 1024, 0 % and 10 % updates (static_veb at 0 % only), then the
+    ΔTree step's idle share.  The ΔTree runs twice: with ``collect_stats``
+    as run_index turns it on (``deltatree+stats``), and without, as phase
+    3 runs it (its idle share is taken there).  Each index is built once
+    and serves both rates (the 0 % run changes nothing)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import make_index
+
+    tree = dict(engine="lockstep", **fig12_config(keys.size))
+    kws = {"deltatree": tree,
+           "deltatree+stats": dict(tree, collect_stats=True),
+           "pointer_bst": dict(cap=2 * keys.size + TOTAL_OPS + 16),
+           "sorted_array": dict(cap=2 * keys.size + TOTAL_OPS + 16),
+           "static_veb": {}}
+    traffic = {(0, False): fig12_traffic(seed, 0, keys, False)}
+    traffic[(0, True)] = traffic[(0, False)]
+    for chunked in (False, True):
+        traffic[(10, chunked)] = fig12_traffic(seed, 10, keys, chunked)
+    runs, builds, launches, idle = [], {}, 0, None
+    for name in kws:
+        backend = name.split("+")[0]
+        t0 = time.perf_counter()
+        ix = make_index(backend, initial=keys, device=device, **kws[name])
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t0
+        for rate in FIG12_RATES if name != "static_veb" else (0,):
+            ix, row = fig12_run(ix, traffic[(rate, backend != "deltatree")],
+                                rate, f"fig12 {name} {rate} %")
+            launches += row["counts"]["fused"]
+            runs.append(dict(row, name=name, build_s=builds[name]))
+            log(json.dumps({"fig12": runs[-1]}))
+        if name == "deltatree":
+            idle = index_idle_share(ix, np.random.default_rng(seed + 7))
+            launches += idle["counts"]["fused"]
+            log(json.dumps({"index_idle": idle}))
+        del ix
+        torch.cuda.empty_cache()
+    log(json.dumps({"fig12_search_ms": {
+        f"{r['name']} {r['update_pct']} %": r["search_ms"] for r in runs}}))
+    return dict(runs=runs, idle=idle, launches=launches)
+
+
+def forest_stats_leg(seed: int, device) -> dict:
+    """7.4: an S = 4 forest at phase 6's size with ``collect_stats`` and
+    ``collect_transfers``: one read batch (shard boundaries, keys above
+    the last and below the domain, random keys) through the fused and
+    the dense dispatch; found / hops and every ReadStats field equal, the
+    router's lanes sum to the batch, found equals the oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import make_index
+
+    rng = np.random.default_rng(seed + 6)
+    keys = np.unique(rng.integers(1, FOREST_KEY_MAX, FOREST_INITIAL)
+                     .astype(np.int32))
+    ix = make_index("forest", initial=keys, engine="lockstep", device=device,
+                    collect_stats=True, collect_transfers=True,
+                    **forest_config(keys.size, 4))
+    q = rng.integers(0, FOREST_KEY_MAX + 50, STATS_K).astype(np.int32)
+    edge = boundary_keys(ix, keys)
+    q[: edge.size] = edge
+    out = {}
+    for name, view in (("fused", ix), ("dense", copy_index(ix, fused=False))):
+        reset_counts()
+        out[name] = view.search(q)
+        torch.cuda.synchronize()
+        out[name + "_counts"] = read_counts()
+    f, d = out["fused"], out["dense"]
+    check(out["fused_counts"]["fused"] == 1
+          and out["dense_counts"]["fused"] == 4
+          and out["fused_counts"]["plain"] + out["dense_counts"]["plain"]
+          == 0, f"forest stats: {out['fused_counts']} {out['dense_counts']}")
+    check(torch.equal(f[0], d[0]) and torch.equal(f[1], d[1]),
+          "forest stats: fused and dense reads differ")
+    check((f[0].cpu().numpy() == np.isin(q, keys)).all(),
+          "forest stats: found differs from the oracle")
+    same_stats(f[2], d[2], "forest ReadStats fused vs dense")
+    rs = f[2]
+    check(int(rs.router.lanes.sum()) == STATS_K
+          and int(rs.search.queries) == STATS_K,
+          f"forest stats: router lanes {rs.router.lanes.tolist()}")
+    row = dict(shards=4, keys=int(keys.size), queries=STATS_K,
+               search=rs.search.asdict(), router=rs.router.asdict(),
+               transfers=rs.transfers.asdict(),
+               counts=dict(fused=out["fused_counts"],
+                           dense=out["dense_counts"]))
+    del ix, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def metrics_serve_leg(rng, device, seed: int) -> dict:
+    """7.4: phase 5.2's float32 leg (Granite at full width, 4 layers)
+    over ``ShardedPagerConfig(num_shards=4)`` whose forest index collects
+    stats and transfers, beside the same run over the stats-free index:
+    tokens equal, and ``metrics()`` in dict, Prometheus and JSON form
+    with the search, router and transfers groups."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.api import make_index
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serving import ServeEngine, ShardedPagerConfig
+
+    cfg = dataclasses.replace(CONFIG, num_layers=EXACT_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    model = Transformer(cfg, device=device, seed=seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype("int32")
+               for n in rng.integers(*EXACT_PROMPT, EXACT_REQUESTS)]
+    pc = ShardedPagerConfig(num_shards=SHARDED_SHARDS, engine="lockstep")
+    fc = pc.forest_config
+    runs = {}
+    for name, collect in (("plain", False), ("stats", True)):
+        ix = make_index("forest", device=device, cfg=dataclasses.replace(
+            fc, tree=dataclasses.replace(fc.tree, collect_stats=collect,
+                                         collect_transfers=collect)))
+        eng = ServeEngine(cfg, model, pc, max_batch=EXACT_REQUESTS, index=ix)
+        reset_counts()
+        wall = run_engine(eng, prompts, EXACT_NEW)
+        runs[name] = dict(eng=eng, wall=wall, counts=read_counts())
+    eng = runs["stats"]["eng"]
+    counts = runs["stats"]["counts"]
+    check(counts["fused"] > 0 and counts["paged"] > 0
+          and counts["plain"] == 0, f"metrics leg: {counts}")
+    for sid, req in eng.active.items():
+        check(req.out == runs["plain"]["eng"].active[sid].out,
+              f"metrics leg: request {sid}'s tokens differ with stats on")
+    snap = eng.metrics()
+    check({"serve", "pager", "maintenance", "search", "router",
+           "transfers"} <= set(snap), f"metrics groups {sorted(snap)}")
+    check(json.loads(eng.metrics("json")) == snap, "metrics json")
+    prom = eng.metrics("prometheus")
+    check("repro_router_lanes{index=\"3\"}" in prom
+          and "repro_transfers_blocks_b16 " in prom
+          and "repro_search_hops_hist{index=\"0\"}" in prom,
+          "metrics prometheus")
+    check(sum(snap["router"]["lanes"]) == snap["search"]["queries"],
+          "metrics: router lanes differ from the batch")
+    row = dict(layers=cfg.num_layers, shards=SHARDED_SHARDS,
+               requests=len(prompts), wall_s=runs["stats"]["wall"],
+               plain_wall_s=runs["plain"]["wall"], counts=counts,
+               prometheus_lines=len(prom.splitlines()),
+               metrics={k: snap[k] for k in ("search", "router",
+                                             "transfers")})
+    del runs, eng, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def comparison_phase(keys, seed: int, device) -> dict:
+    """Phase 7, in order: 7.1 Table 1, 7.2 the Fig. 12 comparison, 7.3 the
+    index step's idle share, 7.4 read stats on the forest and the sharded
+    serve path.  Returns every row and kernel 2's launches."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    table1 = table1_phase(seed, device)
+    log(json.dumps({"table1_fit": table1["fit"],
+                    "table1_deltatree": table1["deltatree"]}))
+    log(f"phase 7.1 done at {time.perf_counter() - t0:.1f} s")
+    fig12 = fig12_phase(keys, seed, device)
+    log(f"phase 7.2-7.3 done at {time.perf_counter() - t0:.1f} s")
+    forest = forest_stats_leg(seed, device)
+    log(json.dumps({"forest_stats": forest}))
+    serve = metrics_serve_leg(np.random.default_rng(seed + 8), device, seed)
+    log(json.dumps({"metrics_serve": serve}))
+    elapsed = time.perf_counter() - t0
+    log(f"phase 7 done in {elapsed:.1f} s")
+    launches = (table1["deltatree"]["counts"]["fused"] + fig12["launches"]
+                + forest["counts"]["fused"]["fused"]
+                + forest["counts"]["dense"]["fused"]
+                + serve["counts"]["fused"])
+    return dict(table1=table1, fig12=fig12, forest=forest, serve=serve,
+                launches=launches, paged_launches=serve["counts"]["paged"],
+                elapsed_s=elapsed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2432,8 +2911,9 @@ def main() -> int:
 
 
 def run_phases(seed: int, device):
-    """Phases 2-6 on ``device``; returns (the rows of the kernels line, the
-    serve phase's results, the forest phase's under ``"forest"``)."""
+    """Phases 2-7 on ``device``; returns (the rows of the kernels line, the
+    serve phase's results, the forest phase's under ``"forest"`` and phase
+    7's under ``"comparison"``)."""
     import numpy as np
     import torch
 
@@ -2476,6 +2956,8 @@ def run_phases(seed: int, device):
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
     serve["forest"] = forest = forest_phase(seed, device)
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    serve["comparison"] = comp = comparison_phase(keys, seed, device)
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",
@@ -2492,6 +2974,8 @@ def run_phases(seed: int, device):
         r = kern[name]
         extra = ({} if name == "rows" else
                  {"forest_launches": forest_launches[name]})
+        if name == "fused":
+            extra["phase7_launches"] = comp["launches"]
         out.append({"name": names[name], "route": "cuda",
                     "source": sources[name], "replaces": replaces[name],
                     "launches": launches[name], **extra,
@@ -2507,6 +2991,7 @@ def run_phases(seed: int, device):
                 "replaces": "src/repro/kernels/delta_paged_attention.py:74",
                 "launches": serve["serve"]["counts"]["paged"],
                 "forest_launches": forest_launches["paged"],
+                "phase7_launches": comp["paged_launches"],
                 "max_abs_err": pa["max_abs_err"], "exact": False,
                 "ms": pa["ms"], "plain_ms": pa["plain_ms"],
                 "bound_ms": pa["bound_ms"], "bound_by": "bytes",

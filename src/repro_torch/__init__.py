@@ -5,8 +5,10 @@ subpackage layout (``core``, ``kernels``, ``maintenance``, ``obs``, ``api``)
 so each module's counterpart sits at the same path.  It imports torch and
 numpy only, never jax or ``repro``.
 
-So far it holds the main path: the single-arena ΔTree index as
-``make_index("deltatree", engine="lockstep")`` serves it — bulk build,
-wait-free reads through the CUDA vEB walk kernels, and eager batched
-updates.  ROADMAP.md lists what is still to port.
+It holds the single-arena ΔTree index as ``make_index("deltatree",
+engine="lockstep")`` serves it (bulk build, wait-free reads and range scans
+through the CUDA vEB kernels, batched updates under every maintenance
+policy), the DeltaForest, the paper's comparison structures, read-path
+statistics and transfer accounting, and the dense serve path.  ROADMAP.md
+lists what is still to port.
 """

@@ -3,9 +3,9 @@
 
 An ``Index`` is (static spec, state): ``spec`` holds the registered
 ``BackendSpec`` (a table of functions) and the backend's config; ``state``
-is the backend's tensors (a ``DeltaTree``, or a ``Forest`` of stacked
-ones).  Methods delegate through the
-spec; ``capability`` says which ones a backend supports
+is the backend's tensors (a ``DeltaTree``, a ``Forest`` of stacked ones,
+or a baseline's state).  Methods delegate through the spec;
+``capability`` says which ones a backend supports
 (``CapabilityError`` otherwise).  Reads take keys as a tensor, a numpy
 array or a list and return tensors on the index's device.
 
@@ -61,10 +61,10 @@ class BackendSpec:
     Required hooks: ``make``, ``capability``, ``search``, ``update``,
     ``live_items``, ``size``.  Optional hooks may be None and are gated by
     ``capability(cfg)``: ``lookup`` (map_mode), ``successor``, ``scan``
-    (range_scan), ``successor_k``.
-    ``alloc_failed`` (sticky arena-exhaustion flag) and ``flush`` are
-    optional.  ``engines`` lists the SearchEngine names the backend's read
-    path can run under (``"*"``: every engine registered in
+    (range_scan), ``successor_k``.  ``touch`` (ideal-cache touch traces,
+    Table 1), ``alloc_failed`` (sticky arena-exhaustion flag) and
+    ``flush`` are optional.  ``engines`` lists the SearchEngine names the
+    backend's read path can run under (``"*"``: every engine registered in
     ``repro_torch.core.engine``); ``maintenance`` the policy kinds it
     accepts.
     """
@@ -85,6 +85,8 @@ class BackendSpec:
     # (cfg, state, keys[K], k) -> the same 5-tuple: the k smallest keys
     # strictly greater than each query
     successor_k: Callable[..., Any] | None = None
+    # (cfg, state) -> (key -> [flat element indices a search reads])
+    touch: Callable[..., Any] | None = None
     alloc_failed: Callable[..., bool] | None = None  # (cfg, state) -> bool
     flush: Callable[..., Any] | None = None     # (cfg, state) -> (state, stats)
     engines: tuple[str, ...] = ("scalar",)      # selectable read engines
@@ -140,6 +142,13 @@ class Index:
         """Active maintenance policy string."""
         return cfg_attr(self.spec.cfg, "maintenance") or "eager"
 
+    @property
+    def collect_stats(self) -> bool:
+        """True when this handle's hop-bearing reads return a trailing
+        `repro_torch.obs.stats.ReadStats` (``TreeConfig.collect_stats``;
+        always False for backends without the knob)."""
+        return bool(cfg_attr(self.spec.cfg, "collect_stats", False))
+
     def _require(self, flag: str, hook) -> None:
         if not getattr(self.capability, flag) or hook is None:
             raise CapabilityError(
@@ -149,11 +158,13 @@ class Index:
     # ---- wait-free reads ----
 
     def search(self, keys):
-        """Membership on the current state. Returns (found[K], hops[K])."""
+        """Membership on the current state. Returns (found[K], hops[K]),
+        plus a trailing ``ReadStats`` when ``self.collect_stats``."""
         return self.spec.backend.search(self.spec.cfg, self.state, keys)
 
     def lookup(self, keys):
-        """Map-mode read. Returns (found[K], payload[K], hops[K])."""
+        """Map-mode read. Returns (found[K], payload[K], hops[K]), plus a
+        trailing ``ReadStats`` when ``self.collect_stats``."""
         self._require("map_mode", self.spec.backend.lookup)
         return self.spec.backend.lookup(self.spec.cfg, self.state, keys)
 
@@ -213,7 +224,8 @@ class Index:
 
     def update(self, batch: OpBatch):
         """`insert_delete` returning telemetry: (new Index, results[K],
-        MaintenanceStats)."""
+        MaintenanceStats | None); None for backends without a maintenance
+        scheduler (the baselines)."""
         self._require("updates", self.spec.backend.update)
         state, results, stats = self.spec.backend.update(
             self.spec.cfg, self.state, batch)
@@ -237,6 +249,13 @@ class Index:
         """All live (key, payload) pairs in ascending key order (host-side,
         for tests)."""
         return list(self.spec.backend.live_items(self.spec.cfg, self.state))
+
+    def touch_fn(self):
+        """Host touch-trace function (ideal-cache transfer counting) or
+        None."""
+        if self.spec.backend.touch is None:
+            return None
+        return self.spec.backend.touch(self.spec.cfg, self.state)
 
     def alloc_failed(self) -> bool:
         """Sticky arena-exhaustion flag (False for unbounded backends)."""

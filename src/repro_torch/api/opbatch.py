@@ -56,3 +56,13 @@ class OpBatch(NamedTuple):
 
     def to(self, device) -> "OpBatch":
         return OpBatch(*(x.to(device) for x in self))
+
+    def mask_searches(self) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        """(kinds, keys, is_update) with OP_SEARCH rows turned into no-op
+        deletes of key 0 (never stored — 0 is the EMPTY sentinel).  For
+        backends whose update only understands insert/delete rows."""
+        is_update = self.kinds != OP_SEARCH
+        kinds = torch.where(is_update, self.kinds, OP_DELETE)
+        keys = torch.where(is_update, self.keys, 0)
+        return kinds, keys, is_update

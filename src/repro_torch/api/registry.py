@@ -69,14 +69,18 @@ def make_index(backend: str = "deltatree", *, initial=None, payloads=None,
             raise ValueError(
                 f"backend {backend!r} supports engines {engines}, "
                 f"not {engine!r}")
-        kwargs["engine"] = engine
+        if spec.engines != ("scalar",):
+            # engine-aware backends thread the name into their config;
+            # single-engine backends just validated the default above
+            kwargs["engine"] = engine
     if maintenance is not None:
         pol = parse_policy(maintenance)   # ValueError on garbage specs
         if pol.kind not in spec.maintenance:
             raise ValueError(
                 f"backend {backend!r} supports maintenance policies "
                 f"{spec.maintenance}, not {maintenance!r}")
-        kwargs["maintenance"] = str(pol)
+        if spec.maintenance != ("eager",):
+            kwargs["maintenance"] = str(pol)
     cfg, state = spec.make(initial, payloads, device=device, **kwargs)
     ix = Index(IndexSpec(backend=spec, cfg=cfg), state)
     if ix.engine not in supported_engines(backend):

@@ -67,9 +67,9 @@ class TreeConfig:
     In this package ``engine`` names a `repro_torch.core.engine` engine,
     ``walk_fused`` picks the fused CUDA walk (True) or the per-round one
     (False), ``maintenance`` takes any policy of `maintenance.policy`,
-    ``collect_stats`` / ``collect_transfers`` must stay False (those are
-    later slices of the port), and ``q_tile`` is unused (the CUDA kernels
-    take any batch).
+    ``collect_stats`` makes every read return a trailing ``ReadStats``
+    (``collect_transfers`` adds its measured ``TransferStats``), and
+    ``q_tile`` is unused (the CUDA kernels take any batch).
     """
 
     height: int = 7
@@ -437,14 +437,16 @@ def search_one(cfg: TreeConfig, t: DeltaTree, key: int):
 
 
 def search_batch(cfg: TreeConfig, t: DeltaTree, keys):
-    """Wait-free search via ``cfg.engine``: (found[K], hops[K])."""
+    """Wait-free search via ``cfg.engine``: (found[K], hops[K]), plus a
+    trailing ``ReadStats`` when ``cfg.collect_stats``."""
     from repro_torch.core import engine as E  # deferred: engine imports us
 
     return E.search(cfg, t, keys)
 
 
 def lookup_batch(cfg: TreeConfig, t: DeltaTree, keys):
-    """Map-mode search via ``cfg.engine``: (found[K], payload[K], hops[K])."""
+    """Map-mode search via ``cfg.engine``: (found[K], payload[K], hops[K]),
+    plus a trailing ``ReadStats`` when ``cfg.collect_stats``."""
     from repro_torch.core import engine as E  # deferred: engine imports us
 
     return E.lookup(cfg, t, keys)
@@ -505,25 +507,8 @@ def _rebuild_row(cfg: TreeConfig, sorted_vals: np.ndarray, m: int,
     """A (UB,) vEB-order value row holding the first ``m`` entries of
     ``sorted_vals`` (packed) as a complete leaf-oriented BST at minimal leaf
     depth (or pinned to the bottom row).  Host numpy."""
-    h = cfg.height
-    tabs = layout.rebuild_tables(h)
-    npdt = cfg.npdtype
-    d = (max(m, 1) - 1).bit_length()        # ceil(log2(max(m, 1)))
-    d = h - 1 if force_bottom else min(max(d, 0), h - 1)
-    kind = tabs["kind"][d]
-    start = tabs["range_start"][d]
-    mid = tabs["range_mid"][d]
-    xv = np.concatenate([np.asarray(sorted_vals, npdt), np.zeros(1, npdt)])
-    cap = xv.shape[0] - 1
-    leaf = np.where(start < m, xv[np.clip(start, 0, cap)], 0)
-    router = np.where(start >= m, 0,
-                      np.where(mid < m, xv[np.clip(mid, 0, cap)],
-                               npdt(cfg.route_left)))
-    vals_b = np.where(kind == 1, leaf, np.where(kind == 2, router, 0))
-    row = np.zeros(cfg.ub, npdt)
-    if m != 0:
-        row[layout.veb_pos_table(h)[1:]] = vals_b[1:]
-    return row
+    return layout.rebuild_values_np(cfg.height, sorted_vals, m, force_bottom,
+                                    cfg.npdtype, cfg.route_left)
 
 
 def _set_row(t_field: torch.Tensor, dn: int, row: np.ndarray) -> None:

@@ -27,8 +27,10 @@ roots for the whole routed batch instead of one per shard.  The forest
 (DESIGN.md §8); the scalar engine declares none and keeps the dense
 per-shard dispatch as the reference.
 
-Not yet ported: ``engine="auto"`` (its table was measured on a TPU; the
-port gets one from H100 rows) and read statistics.
+Reads return a trailing ``ReadStats`` (`repro_torch.obs.stats`) when
+``cfg.collect_stats`` is set, derived here in the dispatch from the
+engines' own columns.  Not yet ported: ``engine="auto"`` (its table was
+measured on a TPU; the port gets one from H100 rows).
 """
 
 from __future__ import annotations
@@ -142,16 +144,61 @@ def _keys(t, keys) -> torch.Tensor:
     return torch.as_tensor(keys, dtype=torch.int32, device=t.value.device)
 
 
-def lookup(cfg, t, keys):
-    """Engine-dispatched map-mode read: (found[K], payload[K], hops[K])."""
+def collecting(cfg) -> bool:
+    """The observability gate (``TreeConfig.collect_stats``).  Configs
+    without the field (the baselines) never collect."""
+    return bool(getattr(cfg, "collect_stats", False))
+
+
+def collecting_transfers(cfg) -> bool:
+    """The sub-gate of the measured ``TransferStats`` (the descent replay):
+    on only when ``collect_stats`` already is."""
+    return collecting(cfg) and bool(getattr(cfg, "collect_transfers", False))
+
+
+def _read_stats(cfg, t, keys, found, hops):
+    """The trailing ``ReadStats`` of a stats-collecting read, derived from
+    the dispatch's own (found, hops) columns, which both engines produce
+    bit for bit, so the stats of the two engines agree by construction.
+    The transfer leg replays the descent from (arena, root, keys) alone,
+    engine-independent for the same reason."""
+    from repro_torch.obs.stats import ReadStats, SearchStats
+
+    pad = keys == layout.ROUTE_LEFT
+    bhit = found & DT.buffered_member(cfg, t, keys)
+    transfers = None
+    if collecting_transfers(cfg):
+        from repro_torch.obs import transfers as OTR
+
+        transfers = OTR.measure(cfg, t, keys)
+    return ReadStats(search=SearchStats.of(hops, pad, bhit),
+                     transfers=transfers)
+
+
+def lookup_cols(cfg, t, keys):
+    """The bare engine hook: always (found[K], payload[K], hops[K]), never
+    stats.  The forest's dense dispatch reads through this, so its stats
+    are derived once, in the forest's own dispatch layer."""
     with TR.annotate(f"engine.{cfg.engine}.lookup"):
         return get_engine(cfg.engine).lookup(cfg, t, _keys(t, keys))
 
 
+def lookup(cfg, t, keys):
+    """Engine-dispatched map-mode read: (found[K], payload[K], hops[K]),
+    plus a trailing ``ReadStats`` when ``cfg.collect_stats``."""
+    keys = _keys(t, keys)
+    out = lookup_cols(cfg, t, keys)
+    if not collecting(cfg):
+        return out
+    found, payload, hops = out
+    return found, payload, hops, _read_stats(cfg, t, keys, found, hops)
+
+
 def search(cfg, t, keys):
-    """Engine-dispatched membership read: (found[K], hops[K])."""
-    found, _, hops = lookup(cfg, t, keys)
-    return found, hops
+    """Engine-dispatched membership read: (found[K], hops[K]), plus a
+    trailing ``ReadStats`` when ``cfg.collect_stats``."""
+    found, _, hops, *stats = lookup(cfg, t, keys)
+    return (found, hops, *stats)
 
 
 def successor(cfg, t, keys):

@@ -103,6 +103,21 @@ def bottom_first(h: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _rebuild_rule(h: int, d: int):
+    """``(kind, range_start, range_mid)`` of every BFS node b in 0..2**h-1
+    when leaves live at depth d (the rule of :func:`rebuild_tables`; b = 0
+    is unused and below-leaf-row).  int64 arrays of shape (2**h,)."""
+    b = np.arange(2**h, dtype=np.int64)
+    dd = np.frexp(b.astype(np.float64))[1].astype(np.int64) - 1  # depth of b
+    j = b - (np.int64(1) << np.maximum(dd, 0))     # offset within its row
+    c = np.int64(1) << np.maximum(d - dd, 0)       # leaves covered
+    leaf, inner = (dd == d), (b > 0) & (dd < d)
+    kind = np.where(leaf, 1, np.where(inner, 2, 0))
+    start = np.where(leaf, j, np.where(inner, j * c, 2**30))
+    mid = np.where(inner, j * c + c // 2, 2**30)
+    return kind, start, mid
+
+
 @functools.lru_cache(maxsize=None)
 def rebuild_tables(h: int) -> dict[str, np.ndarray]:
     """Static tables for rebuilding a ΔNode at any leaf depth d in 0..h-1.
@@ -115,25 +130,9 @@ def rebuild_tables(h: int) -> dict[str, np.ndarray]:
         2 = internal row.
     All indexed by BFS node; callers translate with :func:`veb_pos_table`.
     """
-    n = 2**h
-    range_start = np.full((h, n), 2**30, dtype=np.int32)
-    range_mid = np.full((h, n), 2**30, dtype=np.int32)
-    kind = np.zeros((h, n), dtype=np.int32)
-    for d in range(h):
-        for b in range(1, n):
-            dd = b.bit_length() - 1  # depth of b
-            j = b - 2**dd            # offset within its row
-            if dd > d:
-                kind[d, b] = 0
-            elif dd == d:
-                kind[d, b] = 1
-                range_start[d, b] = j
-            else:
-                kind[d, b] = 2
-                c = 2 ** (d - dd)    # leaves covered
-                range_start[d, b] = j * c
-                range_mid[d, b] = j * c + c // 2
-    return {"range_start": range_start, "range_mid": range_mid, "kind": kind}
+    kind, start, mid = (np.stack(t).astype(np.int32) for t in zip(
+        *(_rebuild_rule(h, d) for d in range(h))))
+    return {"range_start": start, "range_mid": mid, "kind": kind}
 
 
 def rebuild_values_np(h: int, sorted_vals: np.ndarray, m: int,
@@ -157,22 +156,15 @@ def rebuild_values_np(h: int, sorted_vals: np.ndarray, m: int,
     if force_bottom:
         d = h - 1
     assert m <= 2**d or m == 1
-    t = rebuild_tables(h)
+    # one leaf depth's rule for every BFS node at once (the full tables cost
+    # O(h * 2**h), too much for a one-ΔNode tree of height 20+)
+    kind, start, mid = _rebuild_rule(h, d)
     pos = veb_pos_table(h)
     out = np.full(n - 1, EMPTY, dtype=dtype)
-    for b in range(1, n):
-        k = t["kind"][d, b]
-        if k == 1:
-            idx = t["range_start"][d, b]
-            if idx < m:
-                out[pos[b]] = sorted_vals[idx]
-        elif k == 2:
-            start = t["range_start"][d, b]
-            mid = t["range_mid"][d, b]
-            if start >= m:
-                continue  # whole subtree empty
-            if mid < m:
-                out[pos[b]] = sorted_vals[mid]   # min of right subtree
-            else:
-                out[pos[b]] = route_left         # right subtree empty
+    leaf = (kind == 1) & (start < m)
+    out[pos[leaf]] = sorted_vals[start[leaf]]
+    has = (kind == 2) & (start < m)
+    right = has & (mid < m)
+    out[pos[right]] = sorted_vals[mid[right]]      # min of right subtree
+    out[pos[has & ~right]] = route_left            # right subtree empty
     return out

@@ -41,8 +41,6 @@ What differs from the JAX package:
 - ``epoch`` is a host int.  It counts arena mutations and keys the fused
   view cache; the cache also checks that the arena's link tensors were
   not written since the view was built.
-- Read statistics (``collect_stats``) are not ported; ``make_index``
-  refuses a config that asks for them, as it does for one tree.
 """
 
 from __future__ import annotations
@@ -266,18 +264,54 @@ def reset_fused_view_cache() -> None:
 
 
 def search_batch(fcfg: ForestConfig, f: Forest, keys):
-    """Routed wait-free search.  Returns (found[K], hops[K])."""
-    found, _, hops = _lookup(fcfg, f, keys)
-    return found, hops
+    """Routed wait-free search.  Returns (found[K], hops[K]), plus a
+    trailing `ReadStats` when ``fcfg.tree.collect_stats`` is on."""
+    found, _, hops, *stats = _lookup(fcfg, f, keys)
+    return (found, hops, *stats)
 
 
 def lookup_batch(fcfg: ForestConfig, f: Forest, keys):
-    """Routed map-mode lookup.  Returns (found[K], payload[K], hops[K])."""
+    """Routed map-mode lookup.  Returns (found[K], payload[K], hops[K]),
+    plus a trailing `ReadStats` when ``fcfg.tree.collect_stats`` is on."""
     return _lookup(fcfg, f, keys)
 
 
+def _forest_read_stats(fcfg: ForestConfig, f: Forest, raw, keys, sid,
+                       found, hops):
+    """Forest `ReadStats` from batch-order read columns.
+
+    Computed on the batch-order (found, hops), so both dispatches (fused
+    frontier / dense per-shard) give the same stats bit for bit.  The
+    router leg adds per-shard lane counts and how many caller keys the
+    key-domain clamp (`_route_keys`) rewrote."""
+    from repro_torch.obs.stats import ReadStats, RouterStats, SearchStats
+
+    pad = keys == _PAD_KEY
+    member = torch.stack([DT.buffered_member(fcfg.tree, shard_tree(f, s),
+                                             keys)
+                          for s in range(fcfg.num_shards)])
+    # each lane's buffered membership in its owner shard
+    lanes = torch.arange(keys.shape[0], device=keys.device)
+    bhit = found & member[sid.long(), lanes]
+    clamped = torch.sum(raw != keys.to(raw.dtype), dtype=torch.int32)
+    transfers = None
+    if E.collecting_transfers(fcfg.tree):
+        from repro_torch.obs import transfers as OTR
+
+        # shard-local replay from (stacked arenas, owner sid, keys): both
+        # dispatches hand it the same sid, so their transfer stats agree
+        transfers = OTR.measure_stacked(
+            fcfg.tree, f.trees.value, f.trees.child,
+            f.trees.root[sid.long()], sid, keys)
+    return ReadStats(
+        search=SearchStats.of(hops, pad, bhit),
+        router=RouterStats.of(R.lane_counts(sid, fcfg.num_shards), clamped),
+        transfers=transfers)
+
+
 def _lookup(fcfg: ForestConfig, f: Forest, keys):
-    keys = _route_keys(keys, f.splits.device)
+    raw = torch.as_tensor(keys, device=f.splits.device)
+    keys = _route_keys(raw, f.splits.device)
     fb = _fused(fcfg)
     if fb is not None:
         # fused frontier: batch order end to end, one walk launch across
@@ -289,14 +323,22 @@ def _lookup(fcfg: ForestConfig, f: Forest, keys):
 
         r, lane, _ = R.fused_dispatch(fcfg.num_shards, whole, f.trees, sid,
                                       keys, view=_maybe_cached_view(fcfg, f))
-        return R.gather_fused(r, lane)
-    r = R.route(f.splits, keys)
-    dkeys = R.scatter_dense(r, fcfg.num_shards, keys, _PAD_KEY)
-    found, pay, hops = R.dispatch(
-        fcfg.num_shards, lambda t, ks: E.lookup(fcfg.tree, t, ks), f.trees,
-        dkeys)
-    return (R.gather_batch(r, found), R.gather_batch(r, pay),
-            R.gather_batch(r, hops))
+        found, pay, hops = R.gather_fused(r, lane)
+    else:
+        r = R.route(f.splits, keys)
+        sid = r.sid
+        dkeys = R.scatter_dense(r, fcfg.num_shards, keys, _PAD_KEY)
+        # the bare engine hook: stats derive once below, from batch-order
+        # columns, not per shard
+        found, pay, hops = R.dispatch(
+            fcfg.num_shards, lambda t, ks: E.lookup_cols(fcfg.tree, t, ks),
+            f.trees, dkeys)
+        found, pay, hops = (R.gather_batch(r, found), R.gather_batch(r, pay),
+                            R.gather_batch(r, hops))
+    if not E.collecting(fcfg.tree):
+        return found, pay, hops
+    return found, pay, hops, _forest_read_stats(fcfg, f, raw, keys, sid,
+                                                found, hops)
 
 
 def _succ_combine(sid, f_owner, s_owner, has_min, mins):

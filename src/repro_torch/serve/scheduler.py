@@ -20,9 +20,8 @@ Each ``step()``, as in the JAX package:
      triggered by the pending high-water mark.
 
 ``view_hits`` / ``view_builds`` count the forest's fused-view cache over
-each step (non-zero only with a forest-backed pager).  Not ported yet
-(ROADMAP.md, Queue 1): ``metrics()`` (raises until ``obs/export.py``
-lands).
+each step (non-zero only with a forest-backed pager).  ``metrics()``
+snapshots every stats source the scheduler touches (`obs.export`).
 """
 
 from __future__ import annotations
@@ -305,12 +304,34 @@ class ServeScheduler:
         return {int(s): pages[i, : n[i]] for i, s in enumerate(sids)}
 
     def metrics(self, fmt: str = "dict"):
-        """The metrics snapshot of the JAX scheduler needs ``obs/export.py``,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "ServeScheduler.metrics() needs repro_torch.obs.export, which is "
-            "not ported yet (ROADMAP.md, Queue 1, obs/); read obs, "
-            "scan_obs, worker.stats() and pager.stats directly")
+        """Point-in-time metrics snapshot across every stats source the
+        scheduler touches: the decode loop's ``ServeStats``, the scan
+        service's ``ScanStats``, the maintenance worker's drain counters,
+        the pager's op counters, the read path's last ``ReadStats`` legs
+        (search / router / transfers — present when the index was built
+        with ``collect_stats``), and any ``REPRO_TRACE`` counters.
+        ``fmt``: "dict" (nested plain dict), "prometheus" (text
+        exposition), or "json"."""
+        from repro_torch.obs import export as OX
+
+        if fmt not in ("dict", "prometheus", "json"):
+            raise ValueError(f"unknown metrics fmt {fmt!r}")
+        rs = self.pager.last_read_stats
+        snap = OX.snapshot(
+            serve=self.obs,
+            scan=self.scan_obs,
+            maintenance=self.worker.stats(),
+            pager=self.pager.stats,
+            search=rs.search if rs is not None else None,
+            router=rs.router if rs is not None else None,
+            transfers=rs.transfers if rs is not None else None,
+            trace=OT.counters() or None,
+        )
+        if fmt == "prometheus":
+            return OX.to_prometheus(snap)
+        if fmt == "json":
+            return OX.to_json(snap)
+        return snap
 
     # ------------------------------------------------------------ trace ---
 

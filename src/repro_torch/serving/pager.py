@@ -100,7 +100,8 @@ class DeltaPager:
         self.stats = {"searches": 0, "inserts": 0, "deletes": 0, "hops": 0,
                       "flushes": 0, "maint_rebuilds": 0, "maint_expands": 0,
                       "maint_merges": 0, "combined": 0, "inline_maint": 0}
-        # read statistics are not ported yet (ROADMAP.md, Queue 1, obs/)
+        # most recent ReadStats from a stats-collecting index (None when
+        # the index does not collect): the metrics-export snapshot source
         self.last_read_stats = None
 
     # ---- key encoding ----
@@ -110,8 +111,12 @@ class DeltaPager:
 
     # ---- index protocol ----
     def _lookup(self, keys: np.ndarray):
-        """(found, payload, hops) tensors for a key batch (wait-free)."""
+        """(found, payload, hops) tensors for a key batch (wait-free).  A
+        stats-collecting index's trailing ReadStats is kept as
+        ``last_read_stats`` for metrics export, not returned."""
         out = self.index.lookup(keys)
+        if len(out) > 3:
+            self.last_read_stats = out[3]
         return out[0], out[1], out[2]
 
     def _update(self, kinds: np.ndarray, keys: np.ndarray,

@@ -83,6 +83,30 @@ def assert_cols_equal(a_cols, b_cols, names, where="") -> None:
         np.testing.assert_array_equal(a, b, err_msg=f"{where}: {name}")
 
 
+def assert_stats_equal(a, b, where=""):
+    """Two stats tuples (JAX or port, nested ReadStats included) equal
+    field for field: dtype, shape and values."""
+    assert type(a).__name__ == type(b).__name__, where
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None or y is None:
+            assert x is None and y is None, (where, name)
+        elif hasattr(x, "_fields"):
+            assert_stats_equal(x, y, f"{where}.{name}")
+        else:
+            x, y = np_of(x), np_of(y)
+            assert x.dtype == y.dtype and x.shape == y.shape, (where, name)
+            np.testing.assert_array_equal(x, y, err_msg=f"{where}.{name}")
+
+
+def stack_stats(items):
+    """Stack port stats tuples of one class field by field along a new
+    leading axis: the (S,) input of their ``reduce``."""
+    import torch
+
+    return type(items[0])(*(torch.stack(xs) for xs in zip(*items)))
+
+
 def shared_npz(tmp_path_factory, name: str, make) -> dict:
     """``make(path)`` writes an ``.npz`` once per test run, shared by every
     pytest-xdist worker (the first worker to ask runs it under a file lock,

@@ -1,8 +1,11 @@
 """PyTorch port: the Index API — a random op trace through the port's
 ``make_index("deltatree", engine="lockstep", device="cpu")`` equals the
 JAX package's ``make_index`` and the oracle; every maintenance policy runs;
-what the port does not run yet raises; with no card and no explicit device
-the entry points raise."""
+the comparison backends (``sorted_array``, ``pointer_bst``,
+``static_veb``) follow the set-trace oracle conformance of
+tests/test_api_conformance.py and its capability and engine gates; what
+the port does not run yet raises; with no card and no explicit device the
+entry points raise."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -122,7 +125,6 @@ def test_relaxed_policies_run(policy):
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(engine="auto"), NotImplementedError),
-    (dict(collect_stats=True), NotImplementedError),
     (dict(maintenance="lazy"), ValueError),
     (dict(engine="nope"), ValueError),
 ])
@@ -156,3 +158,74 @@ def test_scheduler_rejects_non_eager_policy():
         np.testing.assert_array_equal(np.asarray(jres), tres.numpy())
         assert jst.asdict() == tst._asdict() and tst.pending > 0
         assert_trees_equal(jt, tt, engine)
+
+
+# ------------------------------------------------ comparison backends ---
+
+BASELINES = ("sorted_array", "pointer_bst", "static_veb")
+KEY_HI = 300
+BUILD_KW = {"sorted_array": dict(cap=4096), "pointer_bst": dict(cap=4096),
+            "static_veb": {}}
+
+
+@pytest.mark.parametrize("backend", BASELINES)
+def test_set_trace_matches_oracle(backend):
+    """tests/test_api_conformance.py's set trace: wait-free searches see
+    the pre-step snapshot, updates apply in batch order (OP_SEARCH rows
+    are no-ops), size / live items / successors follow the oracle."""
+    rng = np.random.default_rng(11)
+    initial = np.unique(rng.integers(1, KEY_HI, 80).astype(np.int32))
+    ix = make_index(backend, initial=initial, device="cpu",
+                    **BUILD_KW[backend])
+    oracle = SetOracle(initial)
+    for _ in range(8):
+        kinds = rng.integers(0, 3, size=24).astype(np.int32)
+        keys = rng.integers(1, KEY_HI, size=24).astype(np.int32)
+        f, hops = ix.search(keys)
+        np.testing.assert_array_equal(f.numpy(), oracle.snapshot_search(keys))
+        assert not hops.any()
+        ix, res, stats = ix.update(OpBatch.mixed(kinds, keys))
+        assert stats is None               # no maintenance scheduler
+        np.testing.assert_array_equal(res.numpy(),
+                                      oracle.apply_updates(kinds, keys))
+        assert not ix.alloc_failed()
+        assert ix.size() == len(oracle.s)
+        assert [k for k, _ in ix.live_items()] == sorted(oracle.s)
+        if ix.capability.successor:
+            q = rng.integers(1, KEY_HI + 5, size=16).astype(np.int32)
+            live = oracle.keys()
+            fs, sc = ix.successor(q)
+            idx = np.searchsorted(live, q, side="right")
+            want = idx < live.size
+            np.testing.assert_array_equal(fs.numpy(), want)
+            np.testing.assert_array_equal(
+                sc.numpy()[want], live[idx[want]])
+    assert ix.flush() == (ix, None)
+
+
+@pytest.mark.parametrize("backend", BASELINES)
+def test_baseline_capability_and_engine_gates(backend):
+    """Set-only backends refuse payloads and map-mode reads; successor
+    where undeclared raises CapabilityError; engine="scalar" is accepted
+    (validated, not threaded into the config), "lockstep" rejected; the
+    maintenance knob takes "eager" only."""
+    with pytest.raises(ValueError, match="payload"):
+        make_index(backend, initial=[5], payloads=[1], device="cpu")
+    ix = make_index(backend, initial=[5, 9], engine="scalar",
+                    maintenance="eager", device="cpu")
+    assert ix.engine == "scalar" and ix.maintenance == "eager"
+    assert not ix.capability.map_mode and not ix.collect_stats
+    with pytest.raises(CapabilityError):
+        ix.lookup([5])
+    if ix.capability.successor:
+        fs, sc = ix.successor([6])
+        assert bool(fs[0]) and int(sc[0]) == 9
+    else:
+        with pytest.raises(CapabilityError):
+            ix.successor([6])
+    with pytest.raises(ValueError, match="supports engines"):
+        make_index(backend, initial=[5, 9], engine="lockstep", device="cpu")
+    with pytest.raises(ValueError, match="maintenance"):
+        make_index(backend, initial=[5, 9], maintenance="deferred",
+                   device="cpu")
+    assert make_index(backend, device="cpu").size() == 0

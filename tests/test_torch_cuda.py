@@ -2,8 +2,9 @@
 
 The CUDA kernels have no CPU mode, so these tests hold them (the walks, the
 range scan and the paged decode attention), the whole update and scan path
-on the card under eager and deferred maintenance, and the serve path,
-against the port's plain versions on the CPU.
+on the card under eager and deferred maintenance, the serve path, the
+comparison structures and the read statistics against the port's plain
+versions on the CPU.
 This file imports torch, numpy and the port only (the card's machine has
 no jax); run it there with
 
@@ -501,3 +502,83 @@ def test_cuda_forest_equals_cpu_forest(cuda, policy):
     assert [k for k, _ in gix.live_items()] == \
         [k for k, _ in cix.live_items()]
     assert not gix.alloc_failed() and not TF.alloc_failed(cix.state)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name", ["SortedArray", "StaticVEB", "PointerBST",
+                                  "HashTable"])
+def test_cuda_baselines_equal_cpu(cuda, name):
+    """Each comparison structure built, searched and (but the hash table)
+    updated on the card equals the same calls on the CPU: results and
+    every state field, through three update batches that cross a full
+    sorted array and revive marked BST nodes."""
+    from repro_torch.core import baselines as BL
+
+    cls = getattr(BL, name)
+    rng = np.random.default_rng(7)
+    vals = np.unique(rng.integers(1, 200_000, 50_000)).astype(np.int32)
+    kw = dict(cap=vals.size + 40) if name == "SortedArray" else {}
+    c, g = cls.build(vals, device="cpu", **kw), cls.build(vals, device=cuda,
+                                                          **kw)
+
+    def same_state(where):
+        for f, a, b in zip(c._fields, c, g):
+            if isinstance(a, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a, b.cpu()), \
+                    (where, f)
+            else:
+                assert a == b, (where, f)
+
+    same_state("build")
+    q = rng.integers(1, 210_000, 4096).astype(np.int32)
+    assert torch.equal(cls.search(c, q), cls.search(g, q).cpu())
+    if name == "HashTable":
+        return
+    for step in range(3):
+        kinds = rng.choice([1, 2], 1024).astype(np.int32)
+        keys = rng.integers(1, 210_000, 1024).astype(np.int32)
+        keys[:32] = keys[32:64]
+        c, cres = cls.update(c, kinds, keys)
+        g, gres = cls.update(g, kinds, keys)
+        assert torch.equal(cres, gres.cpu()), step
+        same_state(step)
+        assert torch.equal(cls.search(c, q), cls.search(g, q).cpu())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("payload_bits", [0, 12])
+def test_cuda_transfer_stats_equal_cpu(cuda, payload_bits):
+    """``obs.transfers.measure`` and a stats-collecting read (kernel 2 on
+    the card) give the same ReadStats on the card as on the CPU."""
+    import dataclasses
+
+    from repro_torch.obs import transfers as OTR
+
+    rng = np.random.default_rng(payload_bits + 1)
+    vals = np.unique(rng.integers(1, 400_000, 100_000))
+    cfg = TDT.TreeConfig(height=7, max_dnodes=6000, buf_cap=16,
+                         payload_bits=payload_bits, engine="lockstep",
+                         collect_stats=True, collect_transfers=True)
+    pays = vals % 4096 if payload_bits else None
+    c = TDT.bulk_build(cfg, vals, pays, device="cpu")
+    g = TDT.bulk_build(cfg, vals, pays, device=cuda)
+    kinds = rng.choice([1, 2], 2048).astype(np.int32)
+    keys = rng.integers(1, 400_000, 2048).astype(np.int32)
+    c, _, _ = TDT.update_batch(cfg, c, kinds, keys)
+    g, _, _ = TDT.update_batch(cfg, g, kinds, keys)
+    q = rng.integers(1, 410_000, 4096).astype(np.int32)
+    q[:5] = np.iinfo(np.int32).max
+    want, got = OTR.measure(cfg, c, q), OTR.measure(cfg, g, q)
+    for f, a, b in zip(want._fields, want, got):
+        assert torch.equal(a, b.cpu()), f
+    n0 = TVS.veb_walk_fused.launches
+    cs, gs = TDT.lookup_batch(cfg, c, q), TDT.lookup_batch(cfg, g, q)
+    assert TVS.veb_walk_fused.launches == n0 + 1
+    _equal(cs[:3], gs[:3], ("found", "payload", "hops"), payload_bits)
+    for leg in ("search", "transfers"):
+        for f, a, b in zip(getattr(cs[3], leg)._fields,
+                           getattr(cs[3], leg), getattr(gs[3], leg)):
+            assert torch.equal(a, b.cpu()), (leg, f)
+    plain = TDT.lookup_batch(dataclasses.replace(cfg, collect_stats=False),
+                             g, q)
+    _equal(plain, gs[:3], ("found", "payload", "hops"), "stats off")

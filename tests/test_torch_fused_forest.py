@@ -180,7 +180,9 @@ def test_fused_map_mode_x64(tmp_path_factory, num_shards, policy):
 def test_fused_capability_and_dispatch_selection():
     """Capability.fused_forest reflects engine x fused flag; the scalar
     engine (no forest_batch) always reads through the dense dispatch; the
-    Index reports the tree's engine and policy."""
+    Index reports the tree's engine and policy; a stats-collecting forest
+    (which raised until obs/ was ported) returns ReadStats with its
+    router leg."""
     from repro_torch.api import make_index
 
     initial = np.asarray([5, 9, 40], np.int32)
@@ -197,8 +199,11 @@ def test_fused_capability_and_dispatch_selection():
     assert not make_index("deltatree", engine="lockstep", initial=initial,
                           height=4, max_dnodes=64,
                           device="cpu").capability.fused_forest
-    with pytest.raises(NotImplementedError):
-        make_index("forest", collect_stats=True, **kw)
+    stats = make_index("forest", collect_stats=True, **kw)
+    assert stats.collect_stats
+    found, _, rs = stats.search([5, 6, 40])
+    assert found.tolist() == [True, False, True]
+    assert rs.router.lanes.tolist() == [2, 1]
 
 
 def test_fused_view_cache_counts_builds_and_hits():

@@ -263,13 +263,16 @@ def test_sharded_scheduler_view_counters_equal_jax(jax_sharded_rec):
 
 
 def test_unported_serving_surfaces_raise():
-    """metrics() (obs/export) raises; the sharded pager, which raised
-    until the forest was ported, now builds a forest-backed pager."""
+    """metrics(), which raised until obs/export was ported, now returns
+    the snapshot in all three forms; the sharded pager, which raised until
+    the forest was ported, builds a forest-backed pager."""
     cfg = get_smoke_config("granite_8b")
     model = Transformer(cfg, device="cpu")
     sch = ServeScheduler(cfg, model, PagerConfig(**STATIC))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sch.metrics()
+    snap = sch.metrics()
+    assert {"serve", "scan", "maintenance", "pager"} <= set(snap)
+    assert json.loads(sch.metrics("json")) == snap
+    assert "repro_serve_steps 0" in sch.metrics("prometheus")
     assert json.dumps(sch.obs.asdict())
     sharded = ServeScheduler(cfg, model, ShardedPagerConfig(**STATIC))
     assert sharded.pager.index.backend == "forest"
