@@ -1,8 +1,10 @@
 """Architecture configs of the port (``repro.configs`` counterpart).
 
 Each module defines ``CONFIG`` (the full published config) and ``SMOKE`` (a
-reduced config of the same family for CPU tests), as in the JAX package.
-Only the architectures the port runs are here; ``get_config`` of any other
+reduced config of the same family for CPU tests), field for field the JAX
+package's.  Only the architectures the port runs are here: the dense, MoE
+and VLM families the serve path admits.  ``get_config`` of any other
+(DeepSeek-V2's MLA, Mamba2's and Jamba's SSD, Whisper's encoder-decoder)
 raises and names ROADMAP.md.
 """
 
@@ -10,10 +12,24 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["granite_8b"]
+ARCH_IDS = [
+    "qwen1_5_110b",
+    "starcoder2_15b",
+    "mistral_nemo_12b",
+    "granite_8b",
+    "internvl2_2b",
+    "phi3_5_moe_42b",
+]
 
-# accept the dashed public id too
-ALIASES = {"granite-8b": "granite_8b"}
+# accept the dashed / dotted public ids too
+ALIASES = {
+    "qwen1.5-110b": "qwen1_5_110b",
+    "starcoder2-15b": "starcoder2_15b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "granite-8b": "granite_8b",
+    "internvl2-2b": "internvl2_2b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+}
 
 
 def _module(name: str):

@@ -22,10 +22,11 @@
 // The first design (one 128-thread block per (b, h), four block barriers a
 // page, float32 staging, one page in flight) took ~9 us a page a block.  This
 // one answers each of those:
-// 1. Split-K over pages.  The grid is (B, KVH, S): block s takes logical
-//    pages [s * pps, (s + 1) * pps) of its (b, h).  S and pps come from the
-//    shapes and the SM count only (the wrapper's `split_plan`), never from
-//    seq_lens' values, so planning needs no host sync.  Each block writes its
+// 1. Split-K over pages.  The grid is (B * NSUB, KVH, S) (NSUB = 1 unless
+//    G > 8, point 5): block s takes logical pages [s * pps, (s + 1) * pps)
+//    of its (b, h).  S and pps come from the shapes and the SM count only
+//    (the wrapper's `split_plan`), never from seq_lens' values, so planning
+//    needs no host sync.  Each block writes its
 //    partial max m, sum l and unnormalised acc to float32 scratch, and
 //    paged_decode_merge_kernel (one block per (b, h)) folds them:
 //    M = max m_s, out = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s,
@@ -54,10 +55,22 @@
 // 4. Storage dtype kept.  K/V stay bf16 (or float32) in shared memory and are
 //    widened in registers; scores, sums and acc are float32.  The launch opts
 //    in to more than 48 KB of dynamic shared memory where it needs it.
+// 5. Groups of more than 8 query heads a KV head (StarCoder2-15B: 48 / 4,
+//    G = 12) split into NSUB = ceil(G / 8) sub-groups of GS = ceil(G / NSUB)
+//    heads, one block each: blockIdx.x = b * NSUB + sub, so a group's blocks
+//    are neighbours in launch order and read the same pages close together
+//    in time, the later one possibly from L2.  One block holding all 16 heads would keep q and acc for 16
+//    heads in registers (256 a thread in bf16 at D = 128: spills) and its
+//    three-page rings in float32 would exceed 227 KB; a sub-group keeps the
+//    G <= 8 kernel exactly.  G <= 8 is one sub-group, the grid unchanged,
+//    and runs an instantiation without the sub-group arithmetic (SUB =
+//    false): with it, Granite's B = 64 x 4096 batch read 2.2-2.6 % slower
+//    (tools/paged_ab.py; NVIDIA H100 80GB HBM3, 700.00 W).  A split group
+//    always has 5-8 heads a sub-group (GP = 8).
 //
 // Limits (the wrapper's `_check` raises on them before a launch): D *
-// sizeof(T) a power of two from 32 to 512 bytes, G <= 8, the block's shared
-// memory at most 227 KB, q / k_pages / v_pages 16-byte aligned.
+// sizeof(T) a power of two from 32 to 512 bytes, the block's shared memory
+// at most 227 KB, q / k_pages / v_pages 16-byte aligned.
 //
 // Entry points launch on the caller's stream, allocate nothing and return
 // the first CUDA error so the Python wrapper can raise on a refused launch.
@@ -71,7 +84,7 @@ namespace {
 constexpr int kWarps = 4;                  // warps a block (tuned on the H100)
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;                 // pages a warp's ring holds
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 8;                   // query heads a block (a sub-group)
 constexpr int kMaxSmem = 232448;           // 227 KB: the per-block opt-in ceiling
 constexpr int kDefaultSmem = 48 * 1024;    // above this, opt in per function
 constexpr float kNeg = -1e30f;
@@ -84,6 +97,7 @@ struct Params {
   const int32_t* block_tables;
   const int32_t* seq_lens;
   int np, ps, kvh, d, g, maxp, splits, pps;
+  int nsub, gs;  // sub-groups a KV head's group splits into, heads in each
   float scale;
   float* part;   // (B * KVH * splits) records of [m (G), l (G), acc (G * D)]
   void* out;
@@ -163,17 +177,29 @@ __host__ __device__ inline int smem_bytes(int ps, int d, int gp, int elt) {
   return kWarps * warp_bytes(ps, d, gp, elt) + kWarps * (2 * gp + gp * d) * 4;
 }
 
-// One block per (b, h, chunk s).  DL lanes share a token row; GP is G rounded
-// up to a power of two (padded heads read q = 0 and are never written).
-template <typename T, int DL, int GP>
+// the plan of point 5: sub-groups of at most kMaxG heads, as even as possible
+__host__ __device__ inline int subgroups(int g) { return (g + kMaxG - 1) / kMaxG; }
+__host__ __device__ inline int subgroup_heads(int g) {
+  const int n = subgroups(g);
+  return (g + n - 1) / n;
+}
+
+// One block per (b, sub-group, h, chunk s); without SUB the whole group.  DL
+// lanes share a token row; GP is the block's heads rounded up to a power of
+// two (padded heads read q = 0 and are never written).
+template <typename T, int DL, int GP, bool SUB>
 __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(Params p) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int TG = 32 / DL;                  // token rows side by side
   constexpr int NF = GP / min_c(GP, DL);       // sums a lane holds after the reduce
-  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int bx = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int b = SUB ? bx / p.nsub : bx;
+  const int g0 = SUB ? (bx - b * p.nsub) * p.gs : 0;   // the sub-group's first head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tg = lane / DL, dl = lane % DL;
   const int ps = p.ps, d = p.d, g = p.g, kvh = p.kvh;
+  const int gn = SUB ? min(p.gs, g - g0) : g;  // its heads
+  if (SUB && gn <= 0) return;
 
   const int len = max(p.seq_lens[b], 0);
   const int npages = min((len + ps - 1) / ps, p.maxp);
@@ -182,8 +208,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(Params p) 
   const int qh = kvh * g;
   if (c0 >= c1) {                              // empty chunk: the merge skips it
     if (p.splits == 1) {                       // ... or, unsplit, length 0 gives 0
-      T* out = static_cast<T*>(p.out) + (static_cast<int64_t>(b) * qh + h * g) * d;
-      for (int i = threadIdx.x; i < g * d; i += kThreads) out[i] = from_f32<T>(0.f);
+      T* out = static_cast<T*>(p.out) + (static_cast<int64_t>(b) * qh + h * g + g0) * d;
+      for (int i = threadIdx.x; i < gn * d; i += kThreads) out[i] = from_f32<T>(0.f);
     }
     return;
   }
@@ -201,12 +227,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(Params p) 
   const T* kp = static_cast<const T*>(p.k_pages);
   const T* vp = static_cast<const T*>(p.v_pages);
   const int32_t* bt = p.block_tables + static_cast<int64_t>(b) * p.maxp;
-  const T* qrow = static_cast<const T*>(p.q) + (static_cast<int64_t>(b) * qh + h * g) * d;
+  const T* qrow = static_cast<const T*>(p.q) + (static_cast<int64_t>(b) * qh + h * g + g0) * d;
 
   float qf[GP][VEC];
 #pragma unroll
   for (int gi = 0; gi < GP; ++gi) {
-    if (gi < g) {
+    if (gi < gn) {
       widen(*reinterpret_cast<const uint4*>(qrow + gi * d + dl * VEC), qf[gi], T());
     } else {
 #pragma unroll
@@ -274,7 +300,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(Params p) 
       const bool valid = tok0 + t < len;
 #pragma unroll
       for (int i = 0; i < NF; ++i)
-        if (row && idx0 + i < g) sc[t * GP + idx0 + i] = valid ? v[i] * p.scale : kNeg;
+        if (row && idx0 + i < gn) sc[t * GP + idx0 + i] = valid ? v[i] * p.scale : kNeg;
     }
     __syncwarp();
 
@@ -336,14 +362,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(Params p) 
   if (tg == 0) {
 #pragma unroll
     for (int gi = 0; gi < GP; ++gi)
-      if (gi < g)
+      if (gi < gn)
 #pragma unroll
         for (int j = 0; j < VEC; ++j) aw[(warp * GP + gi) * d + dl * VEC + j] = acc[gi][j];
   }
   __syncthreads();
 
   // the block's warps merged (a warp without pages has m = -1e30, l = acc = 0)
-  for (int i = threadIdx.x; i < g * d; i += kThreads) {
+  for (int i = threadIdx.x; i < gn * d; i += kThreads) {
     const int gi = i / d, c = i - gi * d;
     float m = kNeg;
 #pragma unroll
@@ -357,14 +383,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(Params p) 
     }
     if (p.splits == 1) {
       T* out = static_cast<T*>(p.out);
-      out[(static_cast<int64_t>(b) * qh + h * g) * d + i] = from_f32<T>(a / fmaxf(l, 1e-30f));
-    } else {
+      out[(static_cast<int64_t>(b) * qh + h * g + g0) * d + i] = from_f32<T>(a / fmaxf(l, 1e-30f));
+    } else {   // the record of (b, h, s) holds all G heads; this block writes its own
       float* rec = p.part + (static_cast<int64_t>(b * kvh + h) * p.splits + s) * g * (d + 2);
       if (c == 0) {
-        rec[gi] = m;
-        rec[g + gi] = l;
+        rec[g0 + gi] = m;
+        rec[g + g0 + gi] = l;
       }
-      rec[2 * g + i] = a;
+      rec[2 * g + g0 * d + i] = a;
     }
   }
 }
@@ -395,26 +421,27 @@ __global__ void __launch_bounds__(kThreads) paged_decode_merge_kernel(Params p) 
   }
 }
 
-template <typename T, int DL, int GP>
+template <typename T, int DL, int GP, bool SUB = false>
 cudaError_t launch_split(const Params& p, int b, cudaStream_t st) {
   const int smem = smem_bytes(p.ps, p.d, GP, sizeof(T));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto* fn = paged_decode_split_kernel<T, DL, GP>;
+  auto* fn = paged_decode_split_kernel<T, DL, GP, SUB>;
   if (smem > kDefaultSmem) {
     const cudaError_t e =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  fn<<<dim3(b, p.kvh, p.splits), kThreads, smem, st>>>(p);
+  fn<<<dim3(b * p.nsub, p.kvh, p.splits), kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int DL>
 cudaError_t dispatch_g(const Params& p, int b, cudaStream_t st) {
-  if (p.g <= 1) return launch_split<T, DL, 1>(p, b, st);
-  if (p.g <= 2) return launch_split<T, DL, 2>(p, b, st);
-  if (p.g <= 4) return launch_split<T, DL, 4>(p, b, st);
-  if (p.g <= kMaxG) return launch_split<T, DL, 8>(p, b, st);
+  if (p.nsub > 1) return launch_split<T, DL, 8, true>(p, b, st);   // gs is 5-8
+  if (p.gs <= 1) return launch_split<T, DL, 1>(p, b, st);
+  if (p.gs <= 2) return launch_split<T, DL, 2>(p, b, st);
+  if (p.gs <= 4) return launch_split<T, DL, 4>(p, b, st);
+  if (p.gs <= kMaxG) return launch_split<T, DL, 8>(p, b, st);
   return cudaErrorInvalidValue;
 }
 
@@ -433,7 +460,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
   if (b == 0) return static_cast<int>(cudaSuccess);
   Params p{q, k_pages, v_pages, static_cast<const int32_t*>(block_tables),
            static_cast<const int32_t*>(seq_lens), np, ps, kvh, d, g, maxp, splits, pps,
-           scale, static_cast<float*>(part), out};
+           subgroups(g), subgroup_heads(g), scale, static_cast<float*>(part), out};
+  if (static_cast<int64_t>(b) * p.nsub > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (d * static_cast<int>(sizeof(T)) / 16) {   // lanes a token row
@@ -472,7 +500,7 @@ int paged_decode_attention_bf16(const void* q, const void* k_pages, const void* 
 // the block's dynamic shared memory for these shapes (the wrapper checks it)
 int paged_decode_smem_bytes(int ps, int d, int g, int elt) {
   int gp = 1;
-  while (gp < g) gp *= 2;
+  while (gp < subgroup_heads(g)) gp *= 2;
   return smem_bytes(ps, d, gp, elt);
 }
 

@@ -35,7 +35,7 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # csrc/paged_attention.cu's constants
 WARPS = 4             # warps a block, each with its own ring of pages
 STAGES = 3            # pages a warp's ring holds
-MAX_G = 8             # query heads a KV head
+MAX_G = 8             # query heads a block: a larger group splits (`subgroups`)
 SMEM_LIMIT = 232448   # dynamic shared memory a block may opt in to (227 KB)
 # the split plan: blocks to aim for per SM, and pages each warp should get
 BLOCKS_PER_SM = 2
@@ -58,12 +58,20 @@ def split_plan(b: int, kvh: int, maxp: int, sm_count: int) -> tuple[int, int]:
     return -(-maxp // pps), pps
 
 
+def subgroups(g: int) -> tuple[int, int]:
+    """(sub-groups, heads in each) of a group of ``g`` query heads a KV
+    head: at most ``MAX_G`` heads a block, as even as possible (G = 12:
+    two blocks of 6).  The kernel computes the same plan."""
+    n = -(-g // MAX_G)
+    return n, -(-g // n)
+
+
 def smem_bytes(ps: int, d: int, g: int, elt: int) -> int:
     """The kernel's dynamic shared memory a block: each warp's ring of
     ``STAGES`` K/V pages of one head plus its scores and rescale factors
     (16-byte padded), then the area where the warps merge their states;
-    G rounds up to a power of two."""
-    gp = 1 << (g - 1).bit_length()
+    a sub-group's heads (`subgroups`) round up to a power of two."""
+    gp = 1 << (subgroups(g)[1] - 1).bit_length()
     warp = STAGES * 2 * ps * d * elt + -(-(ps * gp + gp) * 4 // 16) * 16
     return WARPS * warp + WARPS * (2 * gp + gp * d) * 4
 
@@ -114,9 +122,6 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens) -> None:
                          f"the kernel takes D * element size a power of two "
                          f"from 32 to 512 bytes")
     g = qh // kvh
-    if g > MAX_G:
-        raise ValueError(f"paged_decode_attention: {g} query heads a KV "
-                         f"head; the kernel takes at most {MAX_G}")
     smem = smem_bytes(k_pages.shape[1], d, g, q.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged_decode_attention: {smem} bytes of shared "
@@ -166,7 +171,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits, pps = split_plan(b, kvh, maxp, _sm_count(dev.index))
+    # a (b, KV head, sub-group) is one block of a chunk's grid
+    splits, pps = split_plan(b, kvh * subgroups(g)[0], maxp,
+                             _sm_count(dev.index))
     part = (torch.empty(b * kvh * splits * g * (d + 2), dtype=torch.float32,
                         device=dev) if splits > 1 else None)
     fn = _kernel_fn(q.dtype)

@@ -1,2 +1,2 @@
-"""Model code of the port (``repro.models`` counterpart): the dense
-transformer the serve path runs."""
+"""Model code of the port (``repro.models`` counterpart): the decoder the
+serve path runs, in the dense, MoE and VLM families."""

@@ -1,10 +1,10 @@
-"""Per-layer blocks: pre-norm attention + SwiGLU MLP with residuals (port
-of the dense kind of ``repro.models.blocks``).
+"""Per-layer blocks: pre-norm GQA attention + an FFN (SwiGLU MLP or MoE)
+with residuals (port of ``repro.models.blocks``).
 
-The JAX package's MLA, SSD (Mamba2) and MoE kinds are not ported yet; a
-config that needs one raises `NotImplementedError` (ROADMAP.md, Queue 1
-items 10 and 13).  Caches are per-layer dicts ``{"k", "v"}`` of shape
-(B, S, KVH, HD), written in place.
+The JAX package's MLA and SSD (Mamba2) mixers are not ported yet; a config
+that needs one raises `NotImplementedError` (ROADMAP.md, Queue 1 item 7).
+Caches are per-layer dicts ``{"k", "v"}`` of shape (B, S, KVH, HD),
+written in place.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from repro_torch.models.layers.attention import (
     qkv_proj,
 )
 from repro_torch.models.layers.basic import RMSNorm, SwiGLU, mlp_apply
+from repro_torch.models.layers.moe import MoE, moe_apply
 
 
 def block_kinds(cfg: ModelConfig, i: int) -> tuple[str, str]:
@@ -34,17 +35,17 @@ def _has_ffn(cfg: ModelConfig, ffn_kind: str) -> bool:
 
 def check_kinds(cfg: ModelConfig, i: int) -> None:
     """Raise for a layer whose kind the port has no counterpart of yet."""
-    mixer, ffn = block_kinds(cfg, i)
-    if cfg.mla or mixer != "attn" or ffn != "mlp":
-        kind = "MLA" if cfg.mla else ("SSD" if mixer != "attn" else "MoE")
+    if cfg.mla or cfg.layer_kind(i) != "attn":
+        kind = "MLA" if cfg.mla else "SSD"
         raise NotImplementedError(
             f"{kind} layers (layer {i} of {cfg.name}) are not ported to "
             f"repro_torch yet; see ROADMAP.md, Queue 1")
 
 
 class Block(nn.Module):
-    """One dense layer: ``norm1``, ``mixer`` (GQA attention), ``norm2``,
-    ``ffn`` (SwiGLU) — the JAX parameter names."""
+    """One layer: ``norm1``, ``mixer`` (GQA attention), ``norm2``, ``ffn``
+    (SwiGLU, or `MoE` where ``cfg.ffn_kind(i)`` says so) — the JAX
+    parameter names."""
 
     def __init__(self, cfg: ModelConfig, layer_idx: int, dtype, device,
                  generator=None):
@@ -55,12 +56,19 @@ class Block(nn.Module):
         self.mixer = Attention(cfg, dtype, device, generator)
         if _has_ffn(cfg, self.kinds[1]):
             self.norm2 = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
-            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device, generator)
+            self.ffn = (MoE(cfg, dtype, device, generator)
+                        if self.kinds[1] == "moe" else
+                        SwiGLU(cfg.d_model, cfg.d_ff, dtype, device,
+                               generator))
 
 
-def _ffn_residual(layer: Block, x: torch.Tensor) -> torch.Tensor:
+def ffn_residual(layer: Block, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """x plus the layer's FFN of its second norm, where it has one."""
     if hasattr(layer, "ffn"):
-        x = x + mlp_apply(layer.ffn, layer.norm2(x))
+        h = layer.norm2(x)
+        x = x + (moe_apply(layer.ffn, cfg, h) if layer.kinds[1] == "moe"
+                 else mlp_apply(layer.ffn, h))
     return x
 
 
@@ -86,7 +94,7 @@ def block_prefill(layer: Block, cfg: ModelConfig, x, positions, cache):
     cache["k"][:, :s] = k.to(cache["k"].dtype)
     cache["v"][:, :s] = v.to(cache["v"].dtype)
     x = x + attn_out(layer.mixer, o)
-    return _ffn_residual(layer, x), cache
+    return ffn_residual(layer, cfg, x), cache
 
 
 def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
@@ -101,4 +109,4 @@ def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
     cache["v"][rows, length] = v[:, 0].to(cache["v"].dtype)
     o = decode_attention(q, cache["k"], cache["v"], length + 1)
     x = x + attn_out(layer.mixer, o)
-    return _ffn_residual(layer, x), cache
+    return ffn_residual(layer, cfg, x), cache

@@ -12,8 +12,9 @@ Family semantics:
   vlm     — dense decoder LM with precomputed patch embeddings in front
   audio   — enc-dec (Whisper)
 
-The port runs the dense family so far; the others raise in
-``models.blocks`` (ROADMAP.md, Queue 1).
+The port runs the dense, MoE and VLM families (those the serve path
+admits); the others raise in ``models.transformer`` and ``models.blocks``
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Decoder-only LM (port of ``repro.models.transformer``, dense family).
+"""Decoder-only LM (port of ``repro.models.transformer``: the dense, MoE
+and VLM families).
 
 ``Transformer`` holds the embedding, one `blocks.Block` per layer in an
 ``nn.ModuleList`` and the final norm, under the JAX parameter names (the
@@ -6,8 +7,13 @@ JAX package's scan-stacked ``slots`` become the list; `weights` carries a
 JAX tree over).  Entry points, as in the JAX module:
 
   init_caches(batch, max_len)         -> dense per-layer K/V caches
-  prefill(tokens, caches)             -> (last-position logits, caches)
+  prefill(tokens, caches[, vision_embeds]) -> (last-position logits, caches)
   decode_step(token, caches, length)  -> (logits, caches)
+
+VLM family: ``vision_embeds`` (B, vision_tokens, D), precomputed patch
+embeddings (the JAX package's frontend stub), go in front of the token
+embeddings, as ``_embed_inputs`` puts them; a VLM prefill without them
+raises where the JAX function asserts.
 
 Caches are written in place (the JAX functions return new ones).  Weights
 are made on ``device`` (``cuda`` unless the caller names the CPU) from an
@@ -31,6 +37,9 @@ from repro_torch.models.layers.basic import (
 )
 
 
+FAMILIES = ("dense", "moe", "vlm")   # the rest raise (ROADMAP.md, Queue 1)
+
+
 def _layout(cfg: ModelConfig):
     """(n_prologue, period, reps): prologue layers are applied unscanned in
     the JAX package; the rest are stacked over the layer pattern."""
@@ -43,7 +52,7 @@ def _layout(cfg: ModelConfig):
 
 
 class Transformer(nn.Module):
-    """The dense decoder.  ``generator`` draws every weight (a new one
+    """The decoder.  ``generator`` draws every weight (a new one
     seeded with ``seed`` on ``device`` when None); ``init=False`` leaves
     the weights uninitialized for `weights.load_state`."""
 
@@ -51,7 +60,7 @@ class Transformer(nn.Module):
                  generator: torch.Generator | None = None,
                  init: bool = True):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family!r} family is not ported to repro_torch "
                 f"yet; see ROADMAP.md, Queue 1")
@@ -100,11 +109,20 @@ class Transformer(nn.Module):
     # --------------------------------------------------------- forward ---
 
     @torch.no_grad()
-    def prefill(self, tokens, caches: list[dict]):
+    def prefill(self, tokens, caches: list[dict], vision_embeds=None):
         """tokens (B, S) -> (logits (B, 1, V) float32 at the last position,
-        caches filled in [0, S))."""
+        caches filled in [0, S)); a VLM's ``vision_embeds`` (B, V_tok, D)
+        go in front, so its caches fill [0, V_tok + S)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = self._embed(tokens)
+        if self.cfg.family == "vlm":
+            if vision_embeds is None:
+                raise ValueError(
+                    f"{self.cfg.name}: a vlm prefill needs vision_embeds "
+                    f"(B, {self.cfg.vision_tokens}, {self.cfg.d_model}) "
+                    f"in front of the tokens; none were given")
+            ve = torch.as_tensor(vision_embeds, device=self.device)
+            x = torch.cat([ve.to(x.dtype), x], dim=1)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device)[None].expand(b, s)

@@ -5,7 +5,10 @@ The JAX package's ``init_params`` returns ``{"embed", "prologue", "slots",
 (reps, ...) axis.  Given that tree as numpy arrays (``jax.tree.map(
 np.asarray, params)``), `from_jax_params` writes each array into the
 matching parameter, so both packages compute with the same weights.  Layer
-``n_pro + r * period + j`` is ``slots[j]`` at repetition ``r``.
+``n_pro + r * period + j`` is ``slots[j]`` at repetition ``r``.  A MoE
+layer's ``ffn`` carries its stacked experts (``w_gate`` / ``w_up`` /
+``w_down``, (E, ...)), the router and ``shared``; values take the port
+parameter's dtype, so the router stays float32 as ``init_moe`` makes it.
 """
 
 from __future__ import annotations

@@ -19,13 +19,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.delta_paged_attention import paged_decode_attention
+from repro_torch.models.blocks import ffn_residual
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import attn_out, qkv_proj
-from repro_torch.models.layers.basic import (
-    embed_apply,
-    logits_apply,
-    mlp_apply,
-)
+from repro_torch.models.layers.basic import embed_apply, logits_apply
 from repro_torch.models.transformer import Transformer
 
 
@@ -40,7 +37,8 @@ def prefill_to_pages(cfg: ModelConfig, model: Transformer, page_size: int,
     """Dense prefill of one prompt, K/V copied into ``pages`` in place.
 
     Returns (k_pages, v_pages, seq_len, first_token): the first decoded
-    token is the argmax over the prompt's last logit."""
+    token is the argmax over the prompt's last logit.  A VLM raises here,
+    as the JAX function's prefill asserts: no vision embeddings reach it."""
     toks = torch.as_tensor(prompt, dtype=torch.int32,
                            device=model.device)[None]
     s = toks.shape[1]
@@ -94,8 +92,7 @@ def paged_decode_step(model: Transformer, cfg: ModelConfig, layers, tokens,
         o = paged_decode_attention(q[:, 0].contiguous(), k_pages[li],
                                    v_pages[li], block_tables, seq_lens)
         x = x + attn_out(layer.mixer, o[:, None])
-        if hasattr(layer, "ffn"):
-            x = x + mlp_apply(layer.ffn, layer.norm2(x))
+        x = ffn_residual(layer, cfg, x)       # the MLP, or the MoE FFN
     x = model.final_norm(x)
     logits = logits_apply(model.embed, x, cfg.logits_softcap)
     return logits, k_pages, v_pages

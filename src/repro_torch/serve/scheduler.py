@@ -65,10 +65,12 @@ class SchedulerConfig:
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla:
+    """The JAX scheduler's gate: the dense, MoE and VLM families with GQA
+    caches (no MLA); the others raise."""
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.mla:
         raise NotImplementedError(
             f"serving the {cfg.family!r} family{' with MLA' if cfg.mla else ''}"
-            f" is not ported to repro_torch yet (ROADMAP.md, Queue 1)")
+            f" is refused, as by the JAX scheduler (ROADMAP.md, Queue 1)")
 
 
 def page_tensors(cfg: ModelConfig, num_pages: int, page_size: int,

@@ -160,6 +160,7 @@ STAT_KEYS = ("searches", "inserts", "deletes", "hops", "flushes",
 # The start of every serving scenario's JAX side: the smoke model's params
 # (recorded under ``param/`` in the port's state_dict names) and
 # ``pager_state``, which records a pager's stats, free list and arena.
+# `serve_prelude` gives it for another architecture's smoke config.
 SERVE_PRELUDE = f"STAT_KEYS = {STAT_KEYS!r}\n" + r'''
 import numpy as np, jax
 from repro.configs import get_smoke_config
@@ -179,14 +180,20 @@ for k, v in jax_state_dict(cfg, jax.tree.map(np.asarray, params)).items():
 '''
 
 
-def serve_model(rec):
-    """The port's smoke Granite with the weights a JAX side recorded under
-    ``param/``."""
+def serve_prelude(arch: str) -> str:
+    """SERVE_PRELUDE over ``arch``'s smoke config."""
+    return SERVE_PRELUDE.replace('get_smoke_config("granite_8b")',
+                                 f'get_smoke_config("{arch}")')
+
+
+def serve_model(rec, arch: str = "granite_8b"):
+    """The port's smoke model of ``arch`` with the weights a JAX side
+    recorded under ``param/``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.transformer import Transformer
     from repro_torch.models.weights import load_state
 
-    cfg = get_smoke_config("granite_8b")
+    cfg = get_smoke_config(arch)
     return load_state(Transformer(cfg, device="cpu", init=False),
                       prefixed(rec, "param"))
 

@@ -266,12 +266,13 @@ def test_cuda_deferred_index_equals_cpu_index(cuda):
     assert TVS.veb_scan_fused.launches == launches + 4
 
 
-def _paged_inputs(rng, device, dtype, b=8, max_len=2048, lens=None):
-    """Granite-width paged decode inputs (QH 32, KVH 8, D 128, PS 16):
-    lengths in 1..max_len with a 0 and a one-page length (or ``lens``),
-    tables from a random permutation with -1 tails, unreferenced pages
-    scrambled."""
-    qh, kvh, d, ps = 32, 8, 128, 16
+def _paged_inputs(rng, device, dtype, b=8, max_len=2048, lens=None, qh=32,
+                  kvh=8):
+    """Granite-width paged decode inputs (QH 32, KVH 8, D 128, PS 16, or
+    other heads): lengths in 1..max_len with a 0 and a one-page length (or
+    ``lens``), tables from a random permutation with -1 tails, unreferenced
+    pages scrambled."""
+    d, ps = 128, 16
     maxp = max_len // ps
     if lens is None:
         lens = rng.integers(1, max_len + 1, b).astype(np.int32)
@@ -293,6 +294,18 @@ def _paged_inputs(rng, device, dtype, b=8, max_len=2048, lens=None):
     return [torch.as_tensor(x).to(device=device, dtype=dt) for x, dt in
             ((q, dtype), (kp, dtype), (vp, dtype), (bt, torch.int32),
              (lens, torch.int32))]
+
+
+def _paged_err(got, want):
+    """|got - want| and its tolerance: 2e-5, plus in bfloat16 one bf16
+    rounding step at each element's magnitude (both round an f32
+    result)."""
+    err = (got.float() - want.float()).abs()
+    tol = torch.full_like(err, 2e-5)
+    if got.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp(min=2.0 ** -126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return err, tol
 
 
 @pytest.mark.requires_cuda
@@ -328,12 +341,36 @@ def test_cuda_paged_attention_equals_plain(cuda, dtype):
         torch.cuda.synchronize()
         assert paged_decode_attention.launches == launches + 1
         assert got.dtype == dtype and got.shape == args[0].shape
-        err = (got.float() - want.float()).abs()
-        tol = torch.full_like(err, 2e-5)
-        if dtype == torch.bfloat16:
-            mag = want.float().abs().clamp(min=2.0 ** -126)
-            tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        err, tol = _paged_err(got, want)
         assert bool((err <= tol).all()), (max_len, lens, float(err.max()))
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(48, 4), (16, 1)], ids=["g12", "g16"])
+def test_cuda_paged_attention_large_groups(cuda, heads, dtype):
+    """Groups of more than 8 query heads a KV head (StarCoder2-15B's 48 /
+    4, and 16 / 1), which the kernel splits into sub-groups of at most 8
+    heads, against the plain version within the tolerance above, split and
+    unsplit, length 0 giving 0."""
+    from repro_torch.kernels.delta_paged_attention import (
+        paged_decode_attention,
+    )
+
+    rng = np.random.default_rng(23)
+    qh, kvh = heads
+    for max_len, lens in ((2048, None), (128, [0, 1, 16, 17, 100, 128, 5,
+                                               64])):
+        args = _paged_inputs(rng, cuda, dtype, max_len=max_len, lens=lens,
+                             qh=qh, kvh=kvh)
+        launches = paged_decode_attention.launches
+        got = paged_decode_attention(*args)
+        want = TREF.ref_paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == launches + 1
+        err, tol = _paged_err(got, want)
+        assert bool((err <= tol).all()), (heads, max_len, float(err.max()))
         assert bool((got[0] == 0).all())
 
 
@@ -350,7 +387,9 @@ def test_cuda_paged_attention_smem_matches_the_wrapper(cuda):
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
     for ps, d, g, elt in ((16, 128, 4, 2), (16, 128, 4, 4), (4, 16, 2, 4),
-                          (8, 64, 8, 2), (32, 256, 3, 2), (1, 32, 1, 4)):
+                          (8, 64, 8, 2), (32, 256, 3, 2), (1, 32, 1, 4),
+                          (16, 128, 12, 2), (16, 128, 12, 4), (16, 128, 16, 4),
+                          (8, 64, 9, 2)):
         assert fn(ps, d, g, elt) == TPA.smem_bytes(ps, d, g, elt)
 
 

@@ -1,6 +1,10 @@
-"""PyTorch port: the dense model the serve path runs (``repro_torch.models``)
-against the JAX package's, on the smoke Granite config with the JAX
-weights carried over (`repro_torch.models.weights`).
+"""PyTorch port: the models the serve path runs (``repro_torch.models``)
+against the JAX package's, on the smoke configs with the JAX weights
+carried over (`repro_torch.models.weights`): Granite (with a flash and a
+bf16 leg), and the zoo's other served configs — Phi-3.5-MoE (the MoE FFN),
+InternVL2 (a VLM: seeded vision embeddings in front), Mistral-Nemo
+(head_dim != d_model / heads), StarCoder2 (3 query heads a KV head) and
+Qwen1.5 (QKV biases).
 
 ``prefill`` and ``decode_step`` logits and the K/V caches must agree within
 1e-5 in float32 (the config's own dtype; XLA and torch sum the products
@@ -19,15 +23,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as j_get
 from repro.configs import get_smoke_config as j_smoke
 from repro.models import transformer as JT
 from repro.models.layers import attention as JA
 from repro.models.layers import basic as JB
 from repro.models.registry import api
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as TA
 from repro_torch.models.layers import basic as TB
+from repro_torch.models.layers.basic import dtype_of
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.weights import from_jax_params
 
@@ -36,6 +42,9 @@ LOGIT_TOL_BF16 = 0.1    # smoke logits reach ~4; bf16 keeps 8 bits
 LEGS = {"naive": {}, "flash": dict(flash_threshold=8, attn_chunk=4),
         "bf16": dict(dtype="bfloat16", param_dtype="bfloat16")}
 B, S, CACHE = 2, 12, 16
+ZOO = ["phi3_5_moe_42b", "internvl2_2b", "mistral_nemo_12b",
+       "starcoder2_15b", "qwen1_5_110b"]
+ZOO_CACHE = 32          # InternVL2's smoke puts 8 vision tokens in front
 
 
 def _np(x) -> np.ndarray:
@@ -168,18 +177,152 @@ def test_initializer_scaling_and_seed():
 
 
 def test_configs_and_unported_kinds():
-    """The port's configs equal the JAX package's field for field; an
-    architecture or layer kind that is not ported raises and names
-    ROADMAP.md."""
-    from repro.configs import get_config as j_get
+    """The port's configs equal the JAX package's field for field, under
+    the JAX ids and public aliases; an architecture or layer kind that is
+    not ported (MLA, SSD, encoder-decoder) raises and names ROADMAP.md."""
+    from repro.configs import ALIASES as J_ALIASES
 
-    for name in ("granite_8b", "granite-8b"):
-        assert dataclasses.asdict(get_config(name)) == \
-            dataclasses.asdict(j_get(name))
-    assert dataclasses.asdict(get_smoke_config("granite_8b")) == \
-        dataclasses.asdict(j_smoke("granite_8b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mamba2_370m")
-    moe = ModelConfig(**dataclasses.asdict(j_smoke("phi3_5_moe_42b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(moe, device="cpu")
+    assert ARCH_IDS == ["qwen1_5_110b", "starcoder2_15b", "mistral_nemo_12b",
+                        "granite_8b", "internvl2_2b", "phi3_5_moe_42b"]
+    for alias, name in J_ALIASES.items():
+        if name not in ARCH_IDS:
+            continue
+        for key in (name, alias):
+            assert dataclasses.asdict(get_config(key)) == \
+                dataclasses.asdict(j_get(key))
+        assert dataclasses.asdict(get_smoke_config(name)) == \
+            dataclasses.asdict(j_smoke(name))
+    for name in ("mamba2_370m", "deepseek_v2_236b", "jamba-1.5-large-398b",
+                 "whisper_base"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(name)
+    for name, kind in (("deepseek_v2_236b", "MLA"), ("mamba2_370m", "ssm"),
+                       ("jamba_1_5_large_398b", "hybrid"),
+                       ("whisper_base", "audio")):
+        cfg = ModelConfig(**dataclasses.asdict(j_smoke(name)))
+        with pytest.raises(NotImplementedError, match=kind):
+            Transformer(cfg, device="cpu")
+
+
+# ------------------------------------------------ the zoo's served configs ---
+
+
+def _vision(cfg):
+    if cfg.family != "vlm":
+        return None
+    return np.random.default_rng(1).standard_normal(
+        (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _caches_np(caches):
+    return (np.stack([c["k"].float().numpy() for c in caches]),
+            np.stack([c["v"].float().numpy() for c in caches]))
+
+
+@pytest.fixture(scope="module")
+def jax_zoo():
+    """Per served config: the JAX params, prefill logits and caches (with
+    the vision prefix for the VLM), then one decode step at ragged lengths,
+    and a bf16-parameter Phi whose router init_moe keeps in float32."""
+    res = {}
+    toks = np.random.default_rng(0).integers(1, 512, (B, S)).astype(np.int32)
+    for name in ZOO:
+        cfg = j_smoke(name)
+        m = api(cfg)
+        params = m.init_params(jax.random.PRNGKey(0))
+        ve = _vision(cfg)
+        kw = {} if ve is None else {"vision_embeds": jnp.asarray(ve)}
+        logits, caches = m.prefill(params, jnp.asarray(toks),
+                                   m.init_caches(B, ZOO_CACHE), **kw)
+        pre = (_np(logits), _np(caches["slots"][0]["k"]),
+               _np(caches["slots"][0]["v"]))
+        tok = np.argmax(pre[0][:, -1], -1)[:, None].astype(np.int32)
+        s_tot = S + cfg.vision_tokens
+        ln = np.asarray([s_tot, s_tot - 3], np.int32)
+        lg, caches = m.decode_step(params, jnp.asarray(tok), caches,
+                                   jnp.asarray(ln))
+        dec = (_np(lg), _np(caches["slots"][0]["k"]),
+               _np(caches["slots"][0]["v"]))
+        res[name] = dict(cfg=cfg, params=jax.tree.map(np.asarray, params),
+                         toks=toks, ve=ve, tok=tok, ln=ln, pre=pre, dec=dec,
+                         count=JT.param_count(params))
+    bf16 = dataclasses.replace(j_smoke("phi3_5_moe_42b"), dtype="bfloat16",
+                               param_dtype="bfloat16")
+    res["phi_bf16"] = dict(cfg=bf16, params=jax.tree.map(
+        np.asarray, api(bf16).init_params(jax.random.PRNGKey(0))))
+    return res
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_logits_and_caches_equal_jax(jax_zoo, name, phase):
+    """Logits and every layer's K/V cache within 1e-5 of JAX's, after the
+    prefill and after one decode step; the same greedy token."""
+    leg = jax_zoo[name]
+    model = from_jax_params(ModelConfig(**dataclasses.asdict(leg["cfg"])),
+                            leg["params"], device="cpu")
+    caches = model.init_caches(B, ZOO_CACHE)
+    ve = None if leg["ve"] is None else torch.as_tensor(leg["ve"])
+    logits, caches = model.prefill(torch.as_tensor(leg["toks"]), caches, ve)
+    got = (logits.numpy(), *_caches_np(caches))
+    if phase == "decode":
+        lg, caches = model.decode_step(torch.as_tensor(leg["tok"]), caches,
+                                       torch.as_tensor(leg["ln"]))
+        got = (lg.numpy(), *_caches_np(caches))
+    want = leg["pre" if phase == "prefill" else "dec"]
+    for what, a, b in zip(("logits", "k", "v"), got, want):
+        assert a.shape == b.shape, (what, a.shape, b.shape)
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL, err_msg=what)
+    np.testing.assert_array_equal(got[0].argmax(-1), want[0].argmax(-1))
+
+
+@pytest.mark.parametrize("name", ZOO + ["phi_bf16"])
+def test_zoo_weight_carry_covers_every_parameter(jax_zoo, name):
+    """Every JAX leaf lands in a port parameter of the same name, shape and
+    value (bf16 values exactly); the MoE router stays float32 under bf16
+    parameters, as ``init_moe`` makes it."""
+    from repro_torch.models.weights import jax_state_dict
+
+    leg = jax_zoo[name]
+    cfg = ModelConfig(**dataclasses.asdict(leg["cfg"]))
+    model = from_jax_params(cfg, leg["params"], device="cpu")
+    flat = jax_state_dict(cfg, leg["params"])
+    own = dict(model.named_parameters())
+    assert set(flat) == set(own)
+    assert model.param_count() == sum(np.asarray(a).size
+                                      for a in jax.tree.leaves(leg["params"]))
+    for key, arr in flat.items():
+        np.testing.assert_array_equal(own[key].float().numpy(),
+                                      np.asarray(arr, np.float32),
+                                      err_msg=key)
+    if cfg.family == "moe":
+        for layer in model.layers:
+            assert layer.ffn.router.dtype == torch.float32
+            assert layer.ffn.w_gate.dtype == dtype_of(cfg.param_dtype)
+
+
+def test_vlm_prefill_needs_vision_embeds(jax_zoo):
+    """A VLM prefill without vision embeddings fails on both sides: JAX's
+    ``_embed_inputs`` asserts, the port raises a ValueError naming them."""
+    leg = jax_zoo["internvl2_2b"]
+    m = api(leg["cfg"])
+    with pytest.raises(AssertionError):
+        m.prefill(leg["params"], jnp.asarray(leg["toks"]),
+                  m.init_caches(B, ZOO_CACHE))
+    model = from_jax_params(ModelConfig(**dataclasses.asdict(leg["cfg"])),
+                            leg["params"], device="cpu")
+    with pytest.raises(ValueError, match="vision_embeds"):
+        model.prefill(torch.as_tensor(leg["toks"]),
+                      model.init_caches(B, ZOO_CACHE))
+
+
+@pytest.mark.parametrize("name", ARCH_IDS)
+def test_full_config_param_count_equals_jax(name):
+    """Each ported full config, built on the meta device (no memory), has
+    exactly as many parameters as JAX's ``init_params`` under
+    ``jax.eval_shape``."""
+    cfg = get_config(name)
+    model = Transformer(cfg, device="meta", init=False)
+    shapes = jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0),
+                                                   j_get(name)))
+    assert model.param_count() == sum(x.size for x in jax.tree.leaves(shapes))

@@ -31,6 +31,9 @@ SHAPES = [
     (3, 8, 1, 128, 16, 3),
     (1, 2, 2, 32, 4, 6),
     (4, 8, 8, 64, 8, 2),   # MHA (G=1)
+    (3, 6, 2, 64, 8, 3),   # G=3 (StarCoder2's smoke config)
+    (2, 12, 1, 64, 8, 4),  # G=12 (StarCoder2-15B): two sub-groups of 6
+    (2, 16, 1, 32, 4, 5),  # G=16: two sub-groups of 8
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
@@ -167,9 +170,13 @@ def test_wrapper_rejects_bad_inputs():
             paged_decode_attention(q.new_zeros(2, 4, d),
                                    kp.new_zeros(kp.shape[:3] + (d,)),
                                    vp.new_zeros(vp.shape[:3] + (d,)), bt, lens)
-    # ... at most 8 query heads a KV head ...
-    with pytest.raises(ValueError, match="query heads a KV head"):
-        paged_decode_attention(q.new_zeros(2, 18, 64), kp, vp, bt, lens)
+    # ... any number of query heads a KV head (a group of more than 8
+    # splits into sub-groups of at most 8, one block each) ...
+    g9 = torch.randn(2, 18, 64, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(
+        paged_decode_attention(g9, kp, vp, bt, lens).numpy(),
+        TREF.ref_paged_decode_attention(g9, kp, vp, bt, lens).numpy())
+    assert TPA.subgroups(9) == (2, 5) and TPA.subgroups(8) == (1, 8)
     # ... a block's rings of pages within 227 KB of shared memory ...
     big = kp.new_zeros(kp.shape[0], 64, 2, 128)
     with pytest.raises(ValueError, match="shared"):
@@ -215,12 +222,15 @@ def test_split_plan_covers_every_page_once(plan):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(32, 8, 128, 16), (4, 2, 16, 4)],
-                         ids=["granite_8b", "granite_smoke"])
+@pytest.mark.parametrize("shape", [(32, 8, 128, 16), (4, 2, 16, 4),
+                                   (48, 4, 128, 16), (64, 8, 128, 16),
+                                   (16, 8, 128, 16), (16, 1, 128, 16)],
+                         ids=["granite_8b", "granite_smoke", "starcoder2_15b",
+                              "qwen1_5_110b", "internvl2_2b", "g16"])
 def test_kernel_limits_admit_the_served_shapes(shape, dtype):
-    """The shapes the serve path runs (Granite-8B and its smoke config,
-    both dtypes) pass the kernel's limits; Granite's bf16 block fits two
-    to an SM."""
+    """The shapes the serve path runs (every served config's heads, G = 1
+    to 12, G = 16 and the smoke config, both dtypes) pass the kernel's
+    limits; a bf16 block at D = 128 and G <= 4 fits two to an SM."""
     qh, kvh, d, ps = shape
     q = torch.zeros(2, qh, d, dtype=dtype)
     kp = torch.zeros(6, ps, kvh, d, dtype=dtype)
@@ -230,5 +240,5 @@ def test_kernel_limits_admit_the_served_shapes(shape, dtype):
     assert out.shape == q.shape
     smem = TPA.smem_bytes(ps, d, qh // kvh, q.element_size())
     assert smem <= TPA.SMEM_LIMIT
-    if shape[0] == 32 and dtype == torch.bfloat16:
+    if d == 128 and dtype == torch.bfloat16 and qh // kvh <= 4:
         assert 2 * smem <= TPA.SMEM_LIMIT
