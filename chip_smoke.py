@@ -161,6 +161,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    vision embeddings + 512 tokens for 4 sequences, 8 decode steps held to
    prefills of the longer prefix (the bf16 rule), and a VLM admission
    into ``ServeScheduler`` that must raise as the JAX one does.
+9. The model-only families (``repro_torch.models.registry``: DeepSeek-V2's
+   MLA, Mamba2's SSD, Jamba's hybrid, Whisper's encoder-decoder; the
+   serve path refuses them, as JAX's does).  9.1: each at its smoke size
+   in float32, drawn on the CPU and copied to the card: ``forward_train``,
+   a prefill and 8 decode steps on both, logits and every cache within
+   1e-5 (the SSD families 1e-4).  9.2-9.5 in bf16 at full width, weights
+   drawn on the card from the seed, each prefill timed after an untimed
+   one: DeepSeek-V2 cut to its dense prologue + 4 MoE layers (prefills of
+   4 x 1024 and 1 x 4096, 32 absorbed decode steps), Jamba-1.5-Large one
+   period of 8 layers holding 8 of its 16 experts (2 x 4096, 32 steps),
+   Mamba2-370m whole (4 x 8192, 64 steps; layer 0's ``ssd_chunked``
+   against ``ssd_ref`` over 1024 tokens), Whisper-base whole (8 lanes,
+   1500 frames, a 64-token prompt, 64 steps).  Each leg holds a prefill
+   and its decode steps to ``forward_train`` over the same tokens by the
+   bf16 rule (DeepSeek-V2 on 1 x 3040 and 4 x 512 prompts, Jamba on 2 x
+   500, each with 32 steps, at capacity factor E / K, no token dropped,
+   the routing forced to forward_train's); Mamba2's bf16 decode drifts
+   from it through 48 layers and the state, so its bf16 prefill is held
+   by that rule and its decode, on the same weights and tokens, in
+   float32 within 1e-3 of the largest |logit|.  Printed: prefill and
+   decode-step times, tokens/s, the peak memory allocated and the
+   weight-read bound of a decode step.  No kernel runs in phase 9: its
+   launch counters stay 0.
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
 reads apart, each phase 7 run) sets the launch counters to 0 just before
@@ -1504,6 +1527,16 @@ def trace_steps(model, rng) -> dict:
                 idle_share=idle)
 
 
+def forced_gates(moe, xf, want):
+    """Gates of tokens ``xf`` (T, D) for the forced experts ``want`` (T,
+    K): their router probabilities, renormalised over the K."""
+    import torch
+
+    probs = torch.softmax(xf.float() @ moe.router, dim=-1)
+    g = probs.gather(-1, want)
+    return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+
+
 class RouteTap:
     """Teacher-forced MoE routing for the bf16 dense comparison.  Served
     decode steps record each layer's chosen experts per lane (`record`);
@@ -1536,10 +1569,7 @@ class RouteTap:
             self.forced += 1
             self.flips += not torch.equal(idx.sort(-1).values,
                                           want.sort(-1).values)
-            probs = torch.softmax(xf.float() @ moe.router, dim=-1)
-            g = probs.gather(-1, want)
-            gates = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
-            idx = want
+            gates, idx = forced_gates(moe, xf, want), want
         return gates, idx
 
     def record(self, sids=None) -> None:
@@ -3210,6 +3240,524 @@ def zoo_phase(seed: int, device) -> dict:
                 paged_launches=paged, elapsed_s=elapsed)
 
 
+# --------------------------------------------------------------------------
+# phase 9: the model-only families (MLA, SSD, hybrid, encoder-decoder)
+# --------------------------------------------------------------------------
+
+MODEL_ONLY = ("deepseek_v2_236b", "mamba2_370m", "jamba_1_5_large_398b",
+              "whisper_base")
+# 9.1: the smoke configs in float32, the card against the port's CPU run
+# (their SSD sums a chunk's decays and states in other orders: 1e-4)
+SMOKE_B, SMOKE_S, SMOKE_STEPS = 2, 20, 8
+SMOKE_TOL, SMOKE_TOL_SSD = 1e-5, 1e-4
+# 9.2: DeepSeek-V2's dense prologue layer + 4 of its 59 MoE layers
+DS_LAYERS = 5
+DS_PREFILL = ((4, 1024), (1, 4096))   # (B, S): the naive, the flash branch
+DS_STEPS = 32
+# the check runs: forward_train over 1 x 3072 tokens takes the flash
+# branch; 4 x 544 widens the argmax sample
+DS_CHECKS = ((1, 3040), (4, 512))
+# 9.3: one period of Jamba-1.5-Large (8 layers) holding 8 of its 16
+# experts: a period with 16 is 45.1 B parameters (90.3 GB of bf16)
+JAMBA_EXPERTS = 8
+JAMBA_PREFILL, JAMBA_STEPS = (2, 4096), 32   # 4096 tokens: 16 SSD chunks
+JAMBA_CHECK = (2, 500)   # a prompt that is no chunk multiple
+# 9.4: Mamba2-370m whole; ssd_chunked against ssd_ref on layer 0's inputs
+MAMBA_PREFILL, MAMBA_STEPS, SSD_REF_LEN = (4, 8192), 64, 1024
+# chunked against sequential float32 sums over 1024 tokens, as a share of
+# the largest |y|
+SSD_REF_TOL = 1e-4
+# Mamba2's float32 check: decode against forward_train as a share of the
+# largest |logit| (read on the H100: 4.7e-4 against 5.36 after 64 steps;
+# the bf16 run drifts to 0.09 at the first step)
+FLOAT_REL_TOL = 1e-3
+# 9.5: Whisper-base whole: 8 lanes, 1500 frames, a 64-token prompt
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 8, 64, 64
+
+
+class RouteReplay:
+    """Teacher-forces a leg's MoE routing to its ``forward_train``'s, as
+    `RouteTap` forces a dense decode to a served step's: ``record`` keeps
+    each MoE layer's expert choice (B, S, K) over the whole sequence; then
+    ``force(positions)`` makes the next pass (the prefill, or one decode
+    step) take the recorded choices of those positions, with gates from
+    its own router probabilities, and counts the (token, layer) rows whose
+    own choice differs (``flips``).  A near-tied router flips under bf16
+    rounding that differs between the train, prefill and absorbed decode
+    paths."""
+
+    def __init__(self):
+        from repro_torch.models.layers import moe as TM
+
+        self.TM, self.orig = TM, TM.route
+        self.rec: list | None = None
+        self.want: list | None = None
+        self.recorded: list = []
+        self.forced = self.flips = 0
+        TM.route = self._route
+
+    def _route(self, moe, cfg, xf):
+        gates, idx = self.orig(moe, cfg, xf)
+        if self.want is not None:
+            want = self.want.pop(0)
+            self.forced += want.shape[0]
+            self.flips += int((idx.sort(-1).values
+                               != want.sort(-1).values).any(-1).sum())
+            return forced_gates(moe, xf, want), want
+        if self.rec is not None:
+            self.rec.append(idx)
+        return gates, idx
+
+    def record(self) -> None:
+        self.rec = []
+
+    def stop(self, b: int, s: int) -> None:
+        self.recorded = [i.reshape(b, s, -1) for i in self.rec]
+        self.rec = None
+
+    def force(self, positions: slice) -> None:
+        self.want = [r[:, positions].reshape(-1, r.shape[-1])
+                     for r in self.recorded]
+
+    def done(self) -> None:
+        check(not self.want, "forced routing left unused")
+        self.want = None
+
+    def close(self) -> None:
+        self.TM.route = self.orig
+
+
+def decode_read_bytes(model, lanes: int) -> int:
+    """`weight_read_bytes` of a decode step, less an encoder-decoder's
+    encoder (its decode steps read only the decoder and the cross caches,
+    not counted here)."""
+    enc = sum(p.numel() * p.element_size()
+              for n, p in model.named_parameters()
+              if n.startswith(("encoder.", "enc_norm.")))
+    return weight_read_bytes(model, lanes) - enc
+
+
+def family_model(cfg, device, seed: int):
+    """The family's model (`registry.api`) on ``device``, drawn from
+    ``seed``."""
+    from repro_torch.models.registry import api
+
+    return api(cfg).init_params(device=device, seed=seed)
+
+
+def run_leg(model, toks, s0: int, steps: int, frames=(), replay=None,
+            timed: bool = True):
+    """Prefill ``toks[:, :s0]`` (and ``frames``), then ``steps`` decode
+    steps fed ``toks``' next tokens; with ``replay`` each pass takes
+    ``forward_train``'s routing.  ``timed``: one untimed prefill first
+    (the allocator's and cuBLAS's first calls at these shapes), then the
+    prefill and every step host-clocked, each ended by a synchronize.
+    Returns (row: prefill ms, decode step median ms, tokens/s; the logits
+    (B, 1 + steps, V) of the prefill's last position and each step)."""
+    import torch
+
+    b = toks.shape[0]
+    dev = model.device
+    if timed:
+        model.prefill(toks[:, :s0], *frames, model.init_caches(b, s0))
+    caches = model.init_caches(b, s0 + steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if replay is not None:
+        replay.force(slice(0, s0))
+    lg, caches = model.prefill(toks[:, :s0], *frames, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if replay is not None:
+        replay.done()
+    out, dec_s = [lg[:, 0]], []
+    for j in range(steps):
+        length = torch.full((b,), s0 + j, dtype=torch.int32, device=dev)
+        if replay is not None:
+            replay.force(slice(s0 + j, s0 + j + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.decode_step(toks[:, s0 + j:s0 + j + 1], caches,
+                                       length)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+        if replay is not None:
+            replay.done()
+        out.append(lg[:, 0])
+    got = torch.stack(out, 1)                       # (B, 1 + steps, V)
+    check(got.shape == (b, 1 + steps, model.cfg.vocab_size)
+          and bool(torch.isfinite(got).all()), "non-finite or misshapen "
+                                               "prefill / decode logits")
+    row = dict(batch=b, prompt=s0, steps=steps)
+    if timed:
+        row["prefill_ms"] = prefill_ms
+    if timed and steps:
+        med = statistics.median(dec_s)
+        row.update(decode_step_ms=med * 1e3, decode_tok_s=b / med)
+    return row, got
+
+
+def hold(got, ref, s0: int, rel_tol: float, where: str) -> dict:
+    """Logits ``got`` (B, n, V) of a prefill's last position and n - 1
+    decode steps against ``forward_train``'s ``ref`` (B, S, V) at the same
+    positions: the largest |difference| must be within ``rel_tol`` of the
+    largest |logit|.  Returns the numbers and the argmax matches (the
+    caller holds those, pooled over its runs, to `TOKEN_MATCH_MIN_BF16`)."""
+    want = ref[:, s0 - 1:s0 - 1 + got.shape[1]]
+    diff = float((got - want).abs().max())
+    mag = float(want.abs().max())
+    check(diff <= rel_tol * mag,
+          f"{where}: prefill / decode logits differ from forward_train's by "
+          f"{diff} (> {rel_tol} x {mag})")
+    match = int((got.argmax(-1) == want.argmax(-1)).sum())
+    return dict(max_logit_diff=diff, max_logit=mag, matches=match,
+                positions=got.shape[0] * got.shape[1])
+
+
+def hold_matches(rows: list, where: str) -> float:
+    """The share of argmaxes equal over ``rows`` (`hold`'s), which must
+    reach `TOKEN_MATCH_MIN_BF16`."""
+    match = sum(r["matches"] for r in rows)
+    n = sum(r["positions"] for r in rows)
+    check(match >= TOKEN_MATCH_MIN_BF16 * n,
+          f"{where}: {match} of {n} argmaxes equal forward_train's")
+    return match / n
+
+
+def train_ref(model, toks, frames=(), replay=None):
+    """(``forward_train`` logits over ``toks``, its host-clocked ms); with
+    ``replay`` its routing is recorded."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if replay is not None:
+        replay.record()
+    with torch.no_grad():
+        ref = model.forward_train(toks, *frames)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if replay is not None:
+        replay.stop(*toks.shape)
+    return ref, ms
+
+
+def smoke_legs(device, seed: int) -> list:
+    """9.1: each model-only family at its smoke size in float32, drawn on
+    the CPU from ``seed`` and copied to the card: ``forward_train``, the
+    prefill and 8 decode steps on both, logits and every cache within
+    `SMOKE_TOL` (the SSD families `SMOKE_TOL_SSD`)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+
+    rows = []
+    for name in MODEL_ONLY:
+        cfg = get_smoke_config(name)
+        tol = SMOKE_TOL_SSD if cfg.family in ("ssm", "hybrid") else SMOKE_TOL
+        cpu = family_model(cfg, "cpu", seed)
+        gpu = copy.deepcopy(cpu).to(device)
+        rng = np.random.default_rng(seed + 91)
+        toks = rng.integers(0, cfg.vocab_size,
+                            (SMOKE_B, SMOKE_S + SMOKE_STEPS)).astype(np.int32)
+        frames = ()
+        if cfg.family == "audio":
+            frames = (rng.standard_normal(
+                (SMOKE_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32),)
+        res = []
+        for model in (cpu, gpu):
+            dev = model.device
+            t = torch.as_tensor(toks, device=dev)
+            f = tuple(torch.as_tensor(a, device=dev) for a in frames)
+            with torch.no_grad():
+                train = model.forward_train(t, *f)
+            caches = model.init_caches(SMOKE_B, SMOKE_S + SMOKE_STEPS)
+            lg, caches = model.prefill(t[:, :SMOKE_S], *f, caches)
+            out = [lg]
+            for j in range(SMOKE_STEPS):
+                ln = torch.full((SMOKE_B,), SMOKE_S + j, dtype=torch.int32,
+                                device=dev)
+                lg, caches = model.decode_step(
+                    t[:, SMOKE_S + j:SMOKE_S + j + 1], caches, ln)
+                out.append(lg)
+            flat = {"train": train, "logits": torch.cat(out, 1)}
+            if isinstance(caches, dict):
+                caches = [caches]
+            for i, c in enumerate(caches):
+                flat.update({f"cache {i} {k}": v for k, v in c.items()})
+            res.append({k: v.float().cpu() for k, v in flat.items()})
+        err = {k: float((res[0][k] - res[1][k]).abs().max()) for k in res[0]}
+        worst = max(err, key=err.get)
+        check(set(res[0]) == set(res[1]) and err[worst] <= tol,
+              f"9.1 {name}: the card's {worst} differs from the CPU's by "
+              f"{err[worst]} (> {tol})")
+        row = dict(config=cfg.name, family=cfg.family, dtype=cfg.dtype,
+                   compared=len(err), max_abs_err=err[worst], worst=worst,
+                   tol=tol)
+        log(json.dumps({"model_only_smoke": row}))
+        rows.append(row)
+    return rows
+
+
+def _tokens(rng, cfg, b: int, s: int, device):
+    import torch
+
+    return torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, s)),
+                           dtype=torch.int32, device=device)
+
+
+def check_leg(model, rng, runs, steps: int, where: str) -> dict:
+    """For each (B, S) of ``runs``: ``forward_train`` over B x (S + steps)
+    tokens, then `run_leg`'s prefill of S and its decode steps held to it
+    (`hold`, the bf16 rule; the argmaxes pooled over the runs).  A MoE
+    model runs at capacity factor E / K (an expert's slots then hold every
+    token: none dropped) with its routing replayed (`RouteReplay`).
+    Returns the numbers under ``check_`` names."""
+    import dataclasses
+
+    cfg = model.cfg
+    replay = None
+    if cfg.moe_experts:
+        replay = RouteReplay()
+        model.cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    rows = []
+    try:
+        for b, s0 in runs:
+            toks = _tokens(rng, cfg, b, s0 + steps, model.device)
+            ref, ms = train_ref(model, toks, (), replay)
+            row, got = run_leg(model, toks, s0, steps, replay=replay,
+                               timed=False)
+            row.update(hold(got, ref, s0, LOGIT_REL_TOL_BF16, where),
+                       train_ms=ms)
+            rows.append(row)
+            del ref, got
+    finally:
+        model.cfg = cfg
+        if replay is not None:
+            replay.close()
+    out = dict(check_runs=rows, check_token_match=hold_matches(rows, where))
+    if replay is not None:
+        out.update(check_capacity_factor=cfg.moe_experts / cfg.moe_top_k,
+                   check_forced_rows=replay.forced,
+                   check_flips=replay.flips)
+    return out
+
+
+def _finish(row: dict, model, lanes: int) -> dict:
+    """The leg's row with the parameter count, the bytes a decode step of
+    ``lanes`` lanes reads of the weights and their bound, and the peak
+    memory allocated since the leg began."""
+    import torch
+
+    nbytes = decode_read_bytes(model, lanes)
+    row.update(params=model.param_count(), weight_read_bytes=nbytes,
+               weight_read_bound_ms=bound_ms(nbytes),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return row
+
+
+def deepseek_leg(rng, device, seed: int) -> dict:
+    """9.2: DeepSeek-V2 at full width (128 heads, kv_lora_rank 512 + 64
+    RoPE, 160 experts top-6 with 2 shared, vocabulary 102,400), its dense
+    prologue layer + 4 MoE layers, bf16: prefills of 4 x 1024 (the
+    materialised softmax) and 1 x 4096 (the flash branch), 32 absorbed
+    decode steps after the first; then `check_leg` on 1 x 3040 + 32
+    tokens (``forward_train`` over 3072 takes the flash branch) and 4 x
+    512 + 32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    full = get_config("deepseek_v2_236b")
+    cfg = dataclasses.replace(full, num_layers=DS_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = family_model(cfg, device, seed)
+    (b, s), (b2, s2) = DS_PREFILL
+    timed, _ = run_leg(model, _tokens(rng, cfg, b, s + DS_STEPS, device), s,
+                       DS_STEPS)
+    flash, _ = run_leg(model, _tokens(rng, cfg, b2, s2, device), s2, 0)
+    row = dict(config=cfg.name, leg="9.2",
+               layers=f"{DS_LAYERS} of {full.num_layers}",
+               reduced="depth: the dense prologue + 4 of 59 MoE layers",
+               **timed, flash_batch=b2, flash_prompt=s2,
+               flash_prefill_ms=flash["prefill_ms"])
+    torch.cuda.empty_cache()
+    row.update(check_leg(model, rng, DS_CHECKS, DS_STEPS, "9.2"))
+    row = _finish(row, model, b)
+    del model
+    release()
+    return row
+
+
+def jamba_leg(rng, device, seed: int) -> dict:
+    """9.3: one period of Jamba-1.5-Large at full widths (d_model 8192,
+    d_inner 16,384: 256 SSD heads of 64 with a 128-wide state; 64 / 8
+    attention heads; MoE of width 24,576 top-2 on the odd layers), bf16,
+    holding 8 of its 16 experts (the router narrows with them): a prefill
+    of 2 x 4096 (16 SSD chunks; the attention layer's flash branch) and
+    32 decode steps; then `check_leg` on 2 x 500 + 32 tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    full = get_config("jamba_1_5_large_398b")
+    cfg = dataclasses.replace(full, num_layers=full.pattern_period,
+                              moe_experts=JAMBA_EXPERTS)
+    torch.cuda.reset_peak_memory_stats()
+    model = family_model(cfg, device, seed)
+    b, s = JAMBA_PREFILL
+    timed, _ = run_leg(model, _tokens(rng, cfg, b, s + JAMBA_STEPS, device),
+                       s, JAMBA_STEPS)
+    row = dict(config=cfg.name, leg="9.3",
+               layers=f"{cfg.num_layers} of {full.num_layers}",
+               reduced=(f"depth: one period of {cfg.num_layers} layers; "
+                        f"{JAMBA_EXPERTS} of {full.moe_experts} experts a "
+                        f"MoE layer (router {cfg.d_model} x {JAMBA_EXPERTS})"),
+               **timed)
+    torch.cuda.empty_cache()
+    row.update(check_leg(model, rng, (JAMBA_CHECK,), JAMBA_STEPS, "9.3"))
+    row = _finish(row, model, b)
+    del model
+    release()
+    return row
+
+
+def mamba_leg(rng, device, seed: int) -> dict:
+    """9.4: Mamba2-370m whole (48 SSD layers).  In bf16: ``forward_train``
+    over 4 x 8256 tokens, then a prefill of 4 x 8192 (held to it by the
+    bf16 rule) and 64 decode steps, timed, each step's drift from it
+    printed: a one-ulp difference between the stepwise and the chunked
+    SSD grows through the layers and the state (PERF.md §6), so the
+    decode is held to ``forward_train`` in float32, on the same weights
+    and tokens, within `FLOAT_REL_TOL`.  Then layer 0's ``ssd_chunked``
+    against ``ssd_ref`` on its real inputs over the first 1024 tokens,
+    within `SSD_REF_TOL` of the largest |y|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mamba2 as m2
+
+    cfg = get_config("mamba2_370m")
+    torch.cuda.reset_peak_memory_stats()
+    model = family_model(cfg, device, seed)
+    b, s = MAMBA_PREFILL
+    toks = _tokens(rng, cfg, b, s + MAMBA_STEPS, device)
+    ref, train_ms = train_ref(model, toks)
+    timed, got = run_leg(model, toks, s, MAMBA_STEPS)
+    prefill = hold(got[:, :1], ref, s, LOGIT_REL_TOL_BF16, "9.4 prefill")
+    drift = (got - ref[:, s - 1:]).abs().amax(dim=(0, 2)).tolist()
+    row = dict(config=cfg.name, leg="9.4", layers=cfg.num_layers,
+               train_ms=train_ms, **timed,
+               prefill_max_logit_diff=prefill["max_logit_diff"],
+               bf16_decode_drift=drift, max_logit=prefill["max_logit"])
+    del ref, got
+    layer = model.layers[0]
+    with torch.no_grad():
+        h = layer.norm1(model._embed(toks[:, :SSD_REF_LEN]))
+        _, xin, b_, c_, dt, _ = m2._pre_ssd(layer.mixer, cfg, h)
+        args = (xin, b_, c_, dt, layer.mixer.a_log, layer.mixer.d_skip)
+        y, _ = m2.ssd_chunked(cfg, *args)
+        y_ref = m2.ssd_ref(cfg, *args)
+    err, mag = float((y - y_ref).abs().max()), float(y_ref.abs().max())
+    check(bool(torch.isfinite(y).all()) and err <= SSD_REF_TOL * mag,
+          f"9.4: ssd_chunked differs from ssd_ref by {err} "
+          f"(> {SSD_REF_TOL} x {mag})")
+    row.update(ssd_ref_tokens=SSD_REF_LEN, ssd_ref_err=err, ssd_ref_max=mag)
+    row = _finish(row, model, b)
+    # the check in float32: the same weights, widened, and the same tokens
+    model.float()
+    model.cfg = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+    ref, ms = train_ref(model, toks)
+    _, got = run_leg(model, toks, s, MAMBA_STEPS, timed=False)
+    held = hold(got, ref, s, FLOAT_REL_TOL, "9.4 float32")
+    row.update(check_dtype="float32", check_train_ms=ms,
+               check_token_match=hold_matches([held], "9.4 float32"),
+               **{f"check_{k}": v for k, v in held.items()})
+    del model, toks, ref, got
+    release()
+    return row
+
+
+def whisper_leg(rng, device, seed: int) -> dict:
+    """9.5: Whisper-base whole (6 + 6 layers), bf16: 8 lanes of 1500
+    seeded frame embeddings, ``forward_train`` over 128 tokens, the encode
+    alone, then the encode and a 64-token prefill and 64 decode steps,
+    timed and held to forward_train."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper_base")
+    torch.cuda.reset_peak_memory_stats()
+    model = family_model(cfg, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 95)
+    frames = (torch.randn((WHISPER_B, cfg.encoder_seq, cfg.d_model),
+                          generator=gen, device=device
+                          ).to(model.act_dtype),)
+    toks = _tokens(rng, cfg, WHISPER_B, WHISPER_PROMPT + WHISPER_STEPS,
+                   device)
+    ref, train_ms = train_ref(model, toks, frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.encode(frames[0])
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    timed, got = run_leg(model, toks, WHISPER_PROMPT, WHISPER_STEPS, frames)
+    held = hold(got, ref, WHISPER_PROMPT, LOGIT_REL_TOL_BF16, "9.5")
+    row = dict(config=cfg.name, leg="9.5",
+               layers=f"{cfg.encoder_layers} + {cfg.num_layers}",
+               frames=cfg.encoder_seq, train_ms=train_ms,
+               encode_ms=encode_ms, **timed,
+               check_token_match=hold_matches([held], "9.5"),
+               **{f"check_{k}": v for k, v in held.items()})
+    row = _finish(row, model, WHISPER_B)
+    del model, ref, got
+    release()
+    return row
+
+
+def model_only_phase(seed: int, device) -> dict:
+    """Phase 9, in order: 9.1 the four model-only families at smoke size
+    (float32, the card against the CPU), 9.2 DeepSeek-V2, 9.3 Jamba, 9.4
+    Mamba2, 9.5 Whisper (bf16, full width).  The launch counters are 0
+    before and after: none of these paths runs a kernel or a plain
+    version of one."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 9)
+    t0 = time.perf_counter()
+    reset_counts()
+    smoke = smoke_legs(device, seed)
+    log(f"phase 9.1 done at {time.perf_counter() - t0:.1f} s")
+    legs = []
+    for leg in (deepseek_leg, jamba_leg, mamba_leg, whisper_leg):
+        legs.append(leg(rng, device, seed))
+        log(json.dumps({"model_only": legs[-1]}))
+        log(f"phase {legs[-1]['leg']} done at "
+            f"{time.perf_counter() - t0:.1f} s")
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"phase 9 launched a kernel or a plain version: {counts}")
+    elapsed = time.perf_counter() - t0
+    log(f"phase 9 done in {elapsed:.1f} s")
+    return dict(smoke=smoke, legs=legs, counts=counts, elapsed_s=elapsed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3241,9 +3789,10 @@ def main() -> int:
 
 
 def run_phases(seed: int, device):
-    """Phases 2-8 on ``device``; returns (the rows of the kernels line, the
+    """Phases 2-9 on ``device``; returns (the rows of the kernels line, the
     serve phase's results, the forest phase's under ``"forest"``, phase
-    7's under ``"comparison"`` and phase 8's under ``"zoo"``)."""
+    7's under ``"comparison"``, phase 8's under ``"zoo"`` and phase 9's
+    under ``"model_only"``)."""
     import numpy as np
     import torch
 
@@ -3290,6 +3839,8 @@ def run_phases(seed: int, device):
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
     serve["zoo"] = zoo = zoo_phase(seed, device)
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    serve["model_only"] = model_only_phase(seed, device)
+    log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",

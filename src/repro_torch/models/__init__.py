@@ -1,2 +1,3 @@
-"""Model code of the port (``repro.models`` counterpart): the decoder the
-serve path runs, in the dense, MoE and VLM families."""
+"""Model code of the port (``repro.models`` counterpart): the decoder of
+every decoder family (dense, MoE, MLA, SSD, hybrid, VLM), the
+encoder-decoder, and the facade over both (``models.registry``)."""

@@ -1,10 +1,12 @@
-"""Per-layer blocks: pre-norm GQA attention + an FFN (SwiGLU MLP or MoE)
-with residuals (port of ``repro.models.blocks``).
+"""Per-layer blocks: a pre-norm mixer (GQA attention, MLA or the SSD of
+Mamba2) and an FFN (SwiGLU MLP or MoE), each with its residual (port of
+``repro.models.blocks``).
 
-The JAX package's MLA and SSD (Mamba2) mixers are not ported yet; a config
-that needs one raises `NotImplementedError` (ROADMAP.md, Queue 1 item 7).
-Caches are per-layer dicts ``{"k", "v"}`` of shape (B, S, KVH, HD),
-written in place.
+A block's kinds are static, from the config's layer pattern
+(``cfg.layer_kind`` / ``cfg.ffn_kind``).  Caches are per-layer dicts,
+written in place: ``{"k", "v"}`` (B, S, KVH, HD) for attention,
+``{"ckv", "krope"}`` (B, S, kvl) / (B, S, qr) for MLA, ``{"state",
+"conv"}`` (B, H, P, N) float32 / (B, w-1, conv_dim) for SSD.
 """
 
 from __future__ import annotations
@@ -13,15 +15,22 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import mamba2 as m2
 from repro_torch.models.layers.attention import (
     Attention,
-    attention_naive,
+    attend,
     attn_out,
+    attn_train,
     decode_attention,
-    flash_attention,
     qkv_proj,
 )
 from repro_torch.models.layers.basic import RMSNorm, SwiGLU, mlp_apply
+from repro_torch.models.layers.mla import (
+    MLA,
+    mla_decode,
+    mla_prefill,
+    mla_train,
+)
 from repro_torch.models.layers.moe import MoE, moe_apply
 
 
@@ -33,27 +42,24 @@ def _has_ffn(cfg: ModelConfig, ffn_kind: str) -> bool:
     return ffn_kind == "moe" or cfg.d_ff > 0
 
 
-def check_kinds(cfg: ModelConfig, i: int) -> None:
-    """Raise for a layer whose kind the port has no counterpart of yet."""
-    if cfg.mla or cfg.layer_kind(i) != "attn":
-        kind = "MLA" if cfg.mla else "SSD"
-        raise NotImplementedError(
-            f"{kind} layers (layer {i} of {cfg.name}) are not ported to "
-            f"repro_torch yet; see ROADMAP.md, Queue 1")
-
-
 class Block(nn.Module):
-    """One layer: ``norm1``, ``mixer`` (GQA attention), ``norm2``, ``ffn``
-    (SwiGLU, or `MoE` where ``cfg.ffn_kind(i)`` says so) — the JAX
-    parameter names."""
+    """One layer: ``norm1``, ``mixer`` (`Attention`, `MLA` when
+    ``cfg.mla``, or `Mamba2` where ``cfg.layer_kind(i)`` is "ssm"), and,
+    unless the config has no FFN (Mamba2), ``norm2`` and ``ffn`` (SwiGLU,
+    or `MoE` where ``cfg.ffn_kind(i)`` says so) — the JAX parameter
+    names."""
 
     def __init__(self, cfg: ModelConfig, layer_idx: int, dtype, device,
                  generator=None):
         super().__init__()
-        check_kinds(cfg, layer_idx)
         self.kinds = block_kinds(cfg, layer_idx)
         self.norm1 = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
-        self.mixer = Attention(cfg, dtype, device, generator)
+        if self.kinds[0] == "ssm":
+            self.mixer = m2.Mamba2(cfg, dtype, device, generator)
+        elif cfg.mla:
+            self.mixer = MLA(cfg, dtype, device, generator)
+        else:
+            self.mixer = Attention(cfg, dtype, device, generator)
         if _has_ffn(cfg, self.kinds[1]):
             self.norm2 = RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
             self.ffn = (MoE(cfg, dtype, device, generator)
@@ -72,41 +78,83 @@ def ffn_residual(layer: Block, cfg: ModelConfig,
     return x
 
 
-def init_block_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                     device) -> dict:
-    """Zero dense cache for one attention block."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+# --------------------------------------------------------------- training ---
+
+
+def block_train(layer: Block, cfg: ModelConfig, x, positions,
+                causal: bool = True):
+    """The block over a whole sequence, no cache."""
+    h = layer.norm1(x)
+    if layer.kinds[0] == "ssm":
+        y = m2.mamba2_train(layer.mixer, cfg, h)
+    elif cfg.mla:
+        y = mla_train(layer.mixer, cfg, h, positions, causal=causal)
+    else:
+        y = attn_train(layer.mixer, cfg, h, positions, causal=causal)
+    return ffn_residual(layer, cfg, x + y)
+
+
+# ---------------------------------------------------------------- caching ---
+
+
+def init_block_cache(cfg: ModelConfig, kinds, batch: int, max_len: int,
+                     dtype, device) -> dict:
+    """Zero cache of one block of ``kinds``."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if kinds[0] == "ssm":
+        return {"state": zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state, dt=torch.float32),
+                "conv": zeros(batch, cfg.conv_width - 1, m2.conv_dim(cfg))}
+    if cfg.mla:
+        return {"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
+                "krope": zeros(batch, max_len, cfg.qk_rope_dim)}
+    return {"k": zeros(batch, max_len, cfg.num_kv_heads, cfg.head_dim),
+            "v": zeros(batch, max_len, cfg.num_kv_heads, cfg.head_dim)}
 
 
 def block_prefill(layer: Block, cfg: ModelConfig, x, positions, cache):
-    """Run the block over a full prompt, filling ``cache`` in [0, S) in
-    place.  Returns (x, cache)."""
+    """Run the block over a full prompt, filling ``cache`` in place (an
+    attention or MLA cache in [0, S); an SSD cache's state and conv
+    inputs after the prompt).  Returns (x, cache)."""
     s = x.shape[1]
     h = layer.norm1(x)
-    q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
-    if s > cfg.flash_threshold:
-        o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_chunk,
-                            kv_chunk=cfg.attn_chunk)
+    if layer.kinds[0] == "ssm":
+        y, state, conv = m2.mamba2_prefill(layer.mixer, cfg, h)
+        cache["state"].copy_(state)
+        cache["conv"].copy_(conv)
+    elif cfg.mla:
+        y, ckv, krope = mla_prefill(layer.mixer, cfg, h, positions)
+        cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, :s] = krope.to(cache["krope"].dtype)
     else:
-        o = attention_naive(q, k, v, causal=True)
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
-    x = x + attn_out(layer.mixer, o)
-    return ffn_residual(layer, cfg, x), cache
+        q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        y = attn_out(layer.mixer, attend(cfg, q, k, v))
+    return ffn_residual(layer, cfg, x + y), cache
 
 
 def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
                  length):
     """Single-token step. x: (B,1,D); length: (B,) tokens already cached.
-    The new K/V go into ``cache`` at ``length`` in place."""
-    b = x.shape[0]
+    Attention and MLA write the new K/V or latent into ``cache`` at
+    ``length``; SSD replaces its state and conv inputs; all in place."""
     h = layer.norm1(x)
-    q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, length] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, length] = v[:, 0].to(cache["v"].dtype)
-    o = decode_attention(q, cache["k"], cache["v"], length + 1)
-    x = x + attn_out(layer.mixer, o)
-    return ffn_residual(layer, cfg, x), cache
+    if layer.kinds[0] == "ssm":
+        y, state, conv = m2.mamba2_decode(layer.mixer, cfg, h,
+                                          cache["state"], cache["conv"])
+        cache["state"].copy_(state)
+        cache["conv"].copy_(conv)
+    elif cfg.mla:
+        y, _, _ = mla_decode(layer.mixer, cfg, h, positions, cache["ckv"],
+                             cache["krope"], length)
+    else:
+        q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
+        rows = torch.arange(x.shape[0], device=x.device)
+        cache["k"][rows, length] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, length] = v[:, 0].to(cache["v"].dtype)
+        o = decode_attention(q, cache["k"], cache["v"], length + 1)
+        y = attn_out(layer.mixer, o)
+    return ffn_residual(layer, cfg, x + y), cache

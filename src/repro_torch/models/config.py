@@ -10,11 +10,11 @@ Family semantics:
   hybrid  — Jamba-style: 1 attention layer per `attn_every` layers, MoE every
             `moe_every` layers, SSD otherwise
   vlm     — dense decoder LM with precomputed patch embeddings in front
-  audio   — enc-dec (Whisper)
+  audio   — enc-dec (Whisper): encoder over precomputed frame embeddings,
+            decoder with cross-attention (``models.encdec``)
 
-The port runs the dense, MoE and VLM families (those the serve path
-admits); the others raise in ``models.transformer`` and ``models.blocks``
-(ROADMAP.md, Queue 1).
+The port runs every family; the serve path admits the dense, MoE and VLM
+ones without MLA, as the JAX scheduler does.
 """
 
 from __future__ import annotations

@@ -1,0 +1,218 @@
+"""Encoder-decoder backbone (Whisper-style, the audio family; port of
+``repro.models.encdec``).
+
+The conv frontend is a stub, as in the JAX package: the caller passes
+precomputed frame embeddings (B, T_enc, d_model).  The encoder is a
+bidirectional transformer over them; the decoder adds cross-attention.
+RoPE gives positions in the encoder and the decoder's self-attention (in
+place of Whisper's learned embeddings, as the JAX package does); the cross
+query and keys take none.
+
+Caches are stacked over the decoder layers, as JAX's are: ``k`` / ``v``
+(L, B, max_len, KVH, HD) for self-attention, written in place at each step,
+and ``ck`` / ``cv`` (L, B, T_enc, KVH, HD) for cross-attention, computed
+once by the prefill.  As in `transformer`, ``forward_train`` and
+``loss_fn`` keep autograd, and ``remat`` / ``unroll`` have no effect.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.deltatree import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers.attention import (
+    Attention,
+    attend,
+    attention_naive,
+    attn_out,
+    attn_train,
+    decode_attention,
+    qkv_proj,
+)
+from repro_torch.models.layers.basic import (
+    Embedding,
+    RMSNorm,
+    SwiGLU,
+    dtype_of,
+    mlp_apply,
+)
+from repro_torch.models.transformer import LanguageModel, _generator, xent
+
+
+class EncoderLayer(nn.Module):
+    """``norm1``, ``attn``, ``norm2``, ``mlp`` — the JAX names."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, generator=None):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.attn = Attention(cfg, dtype, device, generator)
+        self.norm2 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.mlp = SwiGLU(d, cfg.d_ff, dtype, device, generator)
+
+
+class DecoderLayer(nn.Module):
+    """``norm1``, ``self_attn``, ``norm_x``, ``cross_attn``, ``norm2``,
+    ``mlp`` — the JAX names."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, generator=None):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.self_attn = Attention(cfg, dtype, device, generator)
+        self.norm_x = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.cross_attn = Attention(cfg, dtype, device, generator)
+        self.norm2 = RMSNorm(d, dtype, device, cfg.norm_eps)
+        self.mlp = SwiGLU(d, cfg.d_ff, dtype, device, generator)
+
+
+def _cross_kv(attn: Attention, cfg: ModelConfig, enc_out):
+    """Cross-attention K/V (B, T_enc, KVH, HD) of the encoder output."""
+    b, t, _ = enc_out.shape
+    k = enc_out @ attn.wk
+    v = enc_out @ attn.wv
+    if cfg.qkv_bias:
+        k, v = k + attn.bk, v + attn.bv
+    return (k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _cross_attn(attn: Attention, cfg: ModelConfig, x, k, v):
+    b, s, _ = x.shape
+    q = x @ attn.wq
+    if cfg.qkv_bias:
+        q = q + attn.bq
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    return attn_out(attn, attention_naive(q, k, v, causal=False))
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device=None) -> dict:
+    """Zero L-stacked caches in ``cfg.dtype``: ``k`` / ``v`` (L, B,
+    max_len, KVH, HD), ``ck`` / ``cv`` (L, B, encoder_seq, KVH, HD)."""
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    l, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(t):
+        return torch.zeros((l, batch, t, kvh, hd), dtype=dtype, device=dev)
+
+    return {"k": zeros(max_len), "v": zeros(max_len),
+            "ck": zeros(cfg.encoder_seq), "cv": zeros(cfg.encoder_seq)}
+
+
+class EncDec(LanguageModel):
+    """``embed`` (an untied output head, as the JAX ``init_params`` makes
+    it), ``encoder`` / ``decoder`` (lists of layers), ``enc_norm``,
+    ``final_norm``.  ``generator`` / ``seed`` / ``init`` as
+    `transformer.Transformer`'s."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 generator: torch.Generator | None = None,
+                 init: bool = True):
+        super().__init__()
+        if cfg.family != "audio":
+            raise ValueError(f"EncDec runs the audio family, not "
+                             f"{cfg.family!r} (models.transformer)")
+        cfg.validate()
+        dev = resolve_device(device)
+        generator = _generator(dev, seed, generator, init)
+        pdt = dtype_of(cfg.param_dtype)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, pdt, dev,
+                               generator=generator)
+        self.encoder = nn.ModuleList(
+            EncoderLayer(cfg, pdt, dev, generator)
+            for _ in range(cfg.encoder_layers))
+        self.enc_norm = RMSNorm(cfg.d_model, pdt, dev, cfg.norm_eps)
+        self.decoder = nn.ModuleList(
+            DecoderLayer(cfg, pdt, dev, generator)
+            for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, pdt, dev, cfg.norm_eps)
+
+    def init_caches(self, batch: int, max_len: int) -> dict:
+        return init_caches(self.cfg, batch, max_len, self.device)
+
+    def encode(self, frames) -> torch.Tensor:
+        """frames (B, T_enc, D) stub embeddings -> the encoder output."""
+        x = torch.as_tensor(frames, device=self.device).to(self.act_dtype)
+        b, t, _ = x.shape
+        positions = self._positions(b, t)
+        for lp in self.encoder:
+            x = x + attn_train(lp.attn, self.cfg, lp.norm1(x), positions,
+                               causal=False)
+            x = x + mlp_apply(lp.mlp, lp.norm2(x))
+        return self.enc_norm(x)
+
+    def _cross_and_mlp(self, lp: DecoderLayer, x, ck, cv):
+        x = x + _cross_attn(lp.cross_attn, self.cfg, lp.norm_x(x), ck, cv)
+        return x + mlp_apply(lp.mlp, lp.norm2(x))
+
+    # --------------------------------------------------------- training ---
+
+    def forward_train(self, tokens, frames) -> torch.Tensor:
+        """tokens (B, S), frames (B, T_enc, D) -> logits (B, S, V)."""
+        enc_out = self.encode(frames)
+        x = self._embed(tokens)
+        positions = self._positions(*x.shape[:2])
+        for lp in self.decoder:
+            x = x + attn_train(lp.self_attn, self.cfg, lp.norm1(x),
+                               positions, causal=True)
+            ck, cv = _cross_kv(lp.cross_attn, self.cfg, enc_out)
+            x = self._cross_and_mlp(lp, x, ck, cv)
+        return self._logits(x)
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        """Next-token cross entropy. batch: {tokens, labels, frames}."""
+        logits = self.forward_train(batch["tokens"], batch["frames"])
+        return xent(logits, torch.as_tensor(batch["labels"],
+                                            device=self.device))
+
+    # ---------------------------------------------------------- serving ---
+
+    @torch.no_grad()
+    def prefill(self, tokens, frames, caches: dict):
+        """Encode ``frames``, run the prompt (B, S), fill ``k`` / ``v`` in
+        [0, S) and ``ck`` / ``cv`` whole, in place.  Returns (logits (B,
+        1, V) at the last position, caches)."""
+        enc_out = self.encode(frames)
+        if enc_out.shape[1] != caches["ck"].shape[2]:
+            raise ValueError(f"{enc_out.shape[1]} frames, but the caches "
+                             f"hold {caches['ck'].shape[2]}")
+        cfg = self.cfg
+        x = self._embed(tokens)
+        s = x.shape[1]
+        positions = self._positions(x.shape[0], s)
+        for li, lp in enumerate(self.decoder):
+            q, k, v = qkv_proj(lp.self_attn, cfg, lp.norm1(x), positions)
+            x = x + attn_out(lp.self_attn, attend(cfg, q, k, v))
+            ck, cv = _cross_kv(lp.cross_attn, cfg, enc_out)
+            x = self._cross_and_mlp(lp, x, ck, cv)
+            caches["k"][li, :, :s] = k.to(caches["k"].dtype)
+            caches["v"][li, :, :s] = v.to(caches["v"].dtype)
+            caches["ck"][li] = ck.to(caches["ck"].dtype)
+            caches["cv"][li] = cv.to(caches["cv"].dtype)
+        return self._logits(x[:, -1:]), caches
+
+    @torch.no_grad()
+    def decode_step(self, token, caches: dict, length):
+        """token (B, 1), length (B,) cached tokens -> (logits (B, 1, V),
+        caches with the new K/V at ``length``)."""
+        cfg = self.cfg
+        length = torch.as_tensor(length, device=self.device)
+        x = self._embed(token)
+        positions = length[:, None].to(torch.int32)
+        rows = torch.arange(x.shape[0], device=self.device)
+        ln = length.long()
+        for li, lp in enumerate(self.decoder):
+            kc, vc = caches["k"][li], caches["v"][li]
+            q, k, v = qkv_proj(lp.self_attn, cfg, lp.norm1(x), positions)
+            kc[rows, ln] = k[:, 0].to(kc.dtype)
+            vc[rows, ln] = v[:, 0].to(vc.dtype)
+            o = decode_attention(q, kc, vc, ln + 1)
+            x = x + attn_out(lp.self_attn, o)
+            x = self._cross_and_mlp(lp, x, caches["ck"][li],
+                                    caches["cv"][li])
+        return self._logits(x), caches

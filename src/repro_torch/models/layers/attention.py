@@ -116,8 +116,9 @@ def _flash_qchunk(qc, k, v, q_pos0: int, kv_chunk: int, causal: bool):
 def flash_attention(q, k, v, causal: bool = True, q_chunk: int = 1024,
                     kv_chunk: int = 1024, block_skip: bool = True):
     """Chunked online-softmax attention. q: (B,Sq,H,Dqk), k: (B,Skv,KVH,Dqk),
-    v: (B,Skv,KVH,Dv).  With ``block_skip`` and a causal square problem
-    each Q chunk reads only its causally visible KV prefix."""
+    v: (B,Skv,KVH,Dv) — Dv may differ from Dqk (MLA).  With ``block_skip``
+    and a causal square problem each Q chunk reads only its causally
+    visible KV prefix."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -161,6 +162,22 @@ def decode_attention(q, k_cache, v_cache, length):
 
 
 # ------------------------------------------------------------ full blocks ---
+
+
+def attend(cfg: ModelConfig, q, k, v, causal: bool = True):
+    """Attention over a whole sequence: the naive softmax up to
+    ``cfg.flash_threshold`` query tokens, the chunked flash past it."""
+    if q.shape[1] > cfg.flash_threshold:
+        return flash_attention(q, k, v, causal=causal,
+                               q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+    return attention_naive(q, k, v, causal=causal)
+
+
+def attn_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """The attention mixer over a whole sequence, no cache."""
+    q, k, v = qkv_proj(attn, cfg, x, positions)
+    return attn_out(attn, attend(cfg, q, k, v, causal))
 
 
 def attn_out(attn: Attention, o_bshd: torch.Tensor) -> torch.Tensor:

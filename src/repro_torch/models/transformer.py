@@ -1,18 +1,30 @@
-"""Decoder-only LM (port of ``repro.models.transformer``: the dense, MoE
-and VLM families).
+"""Decoder-only LM (port of ``repro.models.transformer``): every decoder
+family — dense, MoE (DeepSeek-V2's MLA among them), VLM, SSM (Mamba2) and
+hybrid (Jamba).
 
 ``Transformer`` holds the embedding, one `blocks.Block` per layer in an
-``nn.ModuleList`` and the final norm, under the JAX parameter names (the
-JAX package's scan-stacked ``slots`` become the list; `weights` carries a
-JAX tree over).  Entry points, as in the JAX module:
+``nn.ModuleList`` and the final norm, under the JAX parameter names.  The
+JAX package's layout — unscanned prologue layers (DeepSeek-V2's leading
+dense-FFN layer), then ``slots`` scan-stacked over the layer pattern's
+period (Jamba: 8) — becomes the list, layer ``n_pro + r * period + j``
+being slot j at repetition r (`weights` carries a JAX tree over).  Entry
+points, as in the JAX module:
 
-  init_caches(batch, max_len)         -> dense per-layer K/V caches
-  prefill(tokens, caches[, vision_embeds]) -> (last-position logits, caches)
-  decode_step(token, caches, length)  -> (logits, caches)
+  forward_train(tokens[, vision_embeds])     -> logits (B, S_total, V)
+  loss_fn(batch)                             -> next-token cross entropy
+  init_caches(batch, max_len)                -> per-layer caches by kind
+  prefill(tokens, caches[, vision_embeds])   -> (last-position logits, caches)
+  decode_step(token, caches, length)         -> (logits, caches)
+
+``forward_train`` and ``loss_fn`` keep autograd (the parameters are made
+with ``requires_grad=False``; a trainer turns it on); ``prefill`` and
+``decode_step`` run without it.  The layers are a list, so the JAX
+config's ``remat``, ``remat_policy`` and ``unroll`` (checkpointing and
+scan unrolling) have no effect here.
 
 VLM family: ``vision_embeds`` (B, vision_tokens, D), precomputed patch
 embeddings (the JAX package's frontend stub), go in front of the token
-embeddings, as ``_embed_inputs`` puts them; a VLM prefill without them
+embeddings, as ``_embed_inputs`` puts them; a VLM call without them
 raises where the JAX function asserts.
 
 Caches are written in place (the JAX functions return new ones).  Weights
@@ -36,8 +48,8 @@ from repro_torch.models.layers.basic import (
     logits_apply,
 )
 
-
-FAMILIES = ("dense", "moe", "vlm")   # the rest raise (ROADMAP.md, Queue 1)
+# the decoder families; "audio" is the encoder-decoder of `models.encdec`
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _layout(cfg: ModelConfig):
@@ -51,34 +63,37 @@ def _layout(cfg: ModelConfig):
     return n_pro, period, (cfg.num_layers - n_pro) // period
 
 
-class Transformer(nn.Module):
-    """The decoder.  ``generator`` draws every weight (a new one
-    seeded with ``seed`` on ``device`` when None); ``init=False`` leaves
-    the weights uninitialized for `weights.load_state`."""
+def _slot_kinds(cfg: ModelConfig) -> list:
+    """The (mixer, FFN) kinds of each slot of the pattern, which every
+    repetition must repeat (the JAX function asserts it)."""
+    n_pro, period, reps = _layout(cfg)
+    kinds = [B.block_kinds(cfg, n_pro + j) for j in range(period)]
+    for j in range(period):
+        for r in range(1, reps):
+            i = n_pro + r * period + j
+            if B.block_kinds(cfg, i) != kinds[j]:
+                raise ValueError(f"layer {i} of {cfg.name} breaks the "
+                                 f"pattern of slot {j}: {kinds[j]}")
+    return kinds
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
-                 generator: torch.Generator | None = None,
-                 init: bool = True):
-        super().__init__()
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family is not ported to repro_torch "
-                f"yet; see ROADMAP.md, Queue 1")
-        cfg.validate()
-        _layout(cfg)
-        dev = resolve_device(device)
-        if not init:
-            generator = None
-        elif generator is None:
-            generator = torch.Generator(device=dev).manual_seed(seed)
-        pdt = dtype_of(cfg.param_dtype)
-        self.cfg = cfg
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, pdt, dev,
-                               tie=cfg.tie_embeddings, generator=generator)
-        self.layers = nn.ModuleList(
-            B.Block(cfg, i, pdt, dev, generator)
-            for i in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg.d_model, pdt, dev, cfg.norm_eps)
+
+def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over labels >= 0, as the JAX function
+    computes it: logsumexp in float32, the label's logit rounded to bf16
+    (JAX contracts a bf16 one-hot with the logits cast to bf16)."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    lab = torch.gather(logits.to(torch.bfloat16), -1,
+                       labels.clamp(min=0).long()[..., None])[..., 0].float()
+    mask = (labels >= 0).float()
+    return ((lse - lab) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+class LanguageModel(nn.Module):
+    """What the decoder and the encoder-decoder share: the embedding
+    ``embed`` and ``final_norm`` under the JAX names, the activation dtype,
+    the device, and the logits."""
+
+    cfg: ModelConfig
 
     @property
     def device(self) -> torch.device:
@@ -91,41 +106,109 @@ class Transformer(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    # ------------------------------------------------------------ cache ---
-
-    def init_caches(self, batch: int, max_len: int) -> list[dict]:
-        """One zero ``{"k", "v"}`` (B, max_len, KVH, HD) cache per layer."""
-        return [B.init_block_cache(self.cfg, batch, max_len, self.act_dtype,
-                                   self.device)
-                for _ in range(self.cfg.num_layers)]
-
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=self.device)
         return embed_apply(self.embed, tokens).to(self.act_dtype)
+
+    def _positions(self, b: int, s: int) -> torch.Tensor:
+        return torch.arange(s, dtype=torch.int32,
+                            device=self.device)[None].expand(b, s)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
         return logits_apply(self.embed, x, self.cfg.logits_softcap)
 
-    # --------------------------------------------------------- forward ---
 
-    @torch.no_grad()
-    def prefill(self, tokens, caches: list[dict], vision_embeds=None):
-        """tokens (B, S) -> (logits (B, 1, V) float32 at the last position,
-        caches filled in [0, S)); a VLM's ``vision_embeds`` (B, V_tok, D)
-        go in front, so its caches fill [0, V_tok + S)."""
-        tokens = torch.as_tensor(tokens, device=self.device)
+def _generator(device, seed: int, generator, init: bool):
+    if not init:
+        return None
+    if generator is None:
+        return torch.Generator(device=device).manual_seed(seed)
+    return generator
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device=None) -> list[dict]:
+    """One zero cache per layer, by its kind (`blocks.init_block_cache`),
+    in ``cfg.dtype`` (an SSD state in float32)."""
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    return [B.init_block_cache(cfg, B.block_kinds(cfg, i), batch, max_len,
+                               dtype, dev)
+            for i in range(cfg.num_layers)]
+
+
+class Transformer(LanguageModel):
+    """The decoder.  ``generator`` draws every weight (a new one
+    seeded with ``seed`` on ``device`` when None); ``init=False`` leaves
+    the weights uninitialized for `weights.load_state`."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 generator: torch.Generator | None = None,
+                 init: bool = True):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise ValueError(
+                f"the {cfg.family!r} family is no decoder-only LM; build it "
+                f"with models.encdec.EncDec (models.registry.api)")
+        cfg.validate()
+        _slot_kinds(cfg)
+        dev = resolve_device(device)
+        generator = _generator(dev, seed, generator, init)
+        pdt = dtype_of(cfg.param_dtype)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, pdt, dev,
+                               tie=cfg.tie_embeddings, generator=generator)
+        self.layers = nn.ModuleList(
+            B.Block(cfg, i, pdt, dev, generator)
+            for i in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, pdt, dev, cfg.norm_eps)
+
+    def init_caches(self, batch: int, max_len: int) -> list[dict]:
+        return init_caches(self.cfg, batch, max_len, self.device)
+
+    def _embed_inputs(self, tokens, vision_embeds=None):
+        """(x (B, S_total, D), positions (B, S_total)); a VLM's vision
+        embeddings go in front of the tokens."""
         x = self._embed(tokens)
         if self.cfg.family == "vlm":
             if vision_embeds is None:
                 raise ValueError(
-                    f"{self.cfg.name}: a vlm prefill needs vision_embeds "
+                    f"{self.cfg.name}: a vlm model needs vision_embeds "
                     f"(B, {self.cfg.vision_tokens}, {self.cfg.d_model}) "
                     f"in front of the tokens; none were given")
             ve = torch.as_tensor(vision_embeds, device=self.device)
             x = torch.cat([ve.to(x.dtype), x], dim=1)
         b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=self.device)[None].expand(b, s)
+        return x, self._positions(b, s)
+
+    # --------------------------------------------------------- training ---
+
+    def forward_train(self, tokens, vision_embeds=None) -> torch.Tensor:
+        """tokens (B, S_text) -> logits (B, S_total, V) float32."""
+        x, positions = self._embed_inputs(tokens, vision_embeds)
+        for layer in self.layers:
+            x = B.block_train(layer, self.cfg, x, positions)
+        return self._logits(x)
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        """Next-token cross entropy. batch: {tokens, labels[,
+        vision_embeds]}; a VLM's vision prefix carries no labels."""
+        logits = self.forward_train(batch["tokens"],
+                                    batch.get("vision_embeds"))
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        if self.cfg.family == "vlm":
+            logits = logits[:, -labels.shape[1]:]
+        return xent(logits, labels)
+
+    # ---------------------------------------------------------- serving ---
+
+    @torch.no_grad()
+    def prefill(self, tokens, caches: list[dict], vision_embeds=None):
+        """tokens (B, S) -> (logits (B, 1, V) float32 at the last position,
+        caches filled); a VLM's ``vision_embeds`` (B, V_tok, D) go in
+        front, so its caches fill [0, V_tok + S)."""
+        x, positions = self._embed_inputs(tokens, vision_embeds)
         for layer, cache in zip(self.layers, caches):
             x, _ = B.block_prefill(layer, self.cfg, x, positions, cache)
         return self._logits(x[:, -1:]), caches
@@ -133,8 +216,7 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, token, caches: list[dict], length):
         """token (B, 1) int32, length (B,) cached tokens -> (logits (B, 1,
-        V) float32, caches with the new K/V at ``length``)."""
-        token = torch.as_tensor(token, device=self.device)
+        V) float32, caches holding the new token)."""
         length = torch.as_tensor(length, device=self.device)
         x = self._embed(token)
         positions = length[:, None].to(torch.int32)

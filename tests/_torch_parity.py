@@ -537,3 +537,182 @@ def jax_sharded(tmp_path_factory) -> dict:
     tests = str(Path(__file__).resolve().parent)
     return jax_npz(tmp_path_factory, "torch_sharded",
                    f"TESTS = {tests!r}\n" + SERVE_PRELUDE + SHARDED_JAX)
+
+
+# ------------------------------------------------- model families' parity ---
+
+# a model leg's batch, prompt and decode steps: 20 + 8 tokens cross the
+# smoke SSD chunk (16) and leave a partial one
+MODEL_B, MODEL_S, MODEL_STEPS = 2, 20, 8
+
+
+def flat_caches(caches, prefix: str, out: dict) -> None:
+    """A decoder's per-layer cache list as ``{prefix}/{layer}/{key}``
+    arrays, an encoder-decoder's L-stacked cache dict as
+    ``{prefix}/{key}``."""
+    if isinstance(caches, dict):
+        for k, v in caches.items():
+            out[f"{prefix}/{k}"] = np_of(v)
+        return
+    for i, c in enumerate(caches):
+        for k, v in c.items():
+            out[f"{prefix}/{i}/{k}"] = np_of(v)
+
+
+def jax_layer_caches(cfg, caches):
+    """JAX decoder caches ({"prologue", "slots"}, slots stacked over the
+    pattern's repetitions) as one dict a layer in the port's layer order;
+    an encoder-decoder's stay as they are."""
+    if cfg.family == "audio":
+        return caches
+    from repro_torch.models.transformer import _layout
+
+    n_pro, period, reps = _layout(cfg)
+    out = list(caches["prologue"])
+    for r in range(reps):
+        for j in range(period):
+            out.append({k: np.asarray(v)[r]
+                        for k, v in caches["slots"][j].items()})
+    return out
+
+
+def model_inputs(cfg, seed: int = 1) -> dict:
+    """Tokens and labels (B, S + steps) and, for the audio family, frame
+    embeddings (B, encoder_seq, D), drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    shape = (MODEL_B, MODEL_S + MODEL_STEPS)
+    inp = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.family == "audio":
+        inp["frames"] = rng.standard_normal(
+            (MODEL_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return inp
+
+
+def _random_biases(tree, rng):
+    """``tree`` with every attention bias (``bq`` / ``bk`` / ``bv``) drawn
+    from a normal of scale 0.5, so a bias left out shows (JAX inits them
+    to zeros)."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (rng.standard_normal(np.shape(v)).astype(np.float32) * 0.5
+                if k in ("bq", "bk", "bv") else _random_biases(v, rng))
+            for k, v in tree.items()}
+
+
+def jax_model_leg(tmp_path_factory, arch: str, name: str | None = None,
+                  random_biases: bool = False, **overrides) -> dict:
+    """The JAX side of a model leg, once per test run (`shared_npz`): the
+    smoke config of ``arch`` with ``overrides``, its params (``param/`` in
+    the port's names; ``count``, the leaves' sizes), `model_inputs`, the
+    jitted ``forward_train`` logits (``train``) and ``loss``, the prefill
+    of the first MODEL_S tokens (``prefill/logits``, ``prefill/cache/``),
+    then MODEL_STEPS teacher-forced decode steps (``decode/logits``
+    stacked, ``decode/cache/`` after the last)."""
+    def make(path):
+        import os
+
+        import jax
+        import jax.numpy as jnp
+
+        from repro.configs import get_smoke_config
+        from repro.models.registry import api
+        from repro_torch.models.weights import jax_state_dict
+
+        cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+        m = api(cfg)
+        params = jax.tree.map(np.asarray,
+                              jax.jit(m.init_params)(jax.random.PRNGKey(0)))
+        if random_biases:
+            params = _random_biases(params, np.random.default_rng(2))
+        rec = {"param/" + k: np.asarray(v)
+               for k, v in jax_state_dict(cfg, params).items()}
+        rec["count"] = np.asarray(sum(np.size(x)
+                                      for x in jax.tree.leaves(params)))
+        inp = model_inputs(cfg)
+        rec.update(inp)
+        j = {k: jnp.asarray(v) for k, v in inp.items()}
+        audio = {"frames": j["frames"]} if cfg.family == "audio" else {}
+        rec["train"] = np.asarray(jax.jit(
+            lambda p, t, **kw: m.forward_train(p, tokens=t, **kw))(
+                params, j["tokens"], **audio))
+        rec["loss"] = np.asarray(jax.jit(m.loss_fn)(params, j))
+        s, b = MODEL_S, MODEL_B
+        caches = m.init_caches(b, s + MODEL_STEPS)
+        prompt = (j["tokens"][:, :s], *audio.values(), caches)
+        logits, caches = jax.jit(m.prefill)(params, *prompt)
+        rec["prefill/logits"] = np.asarray(logits)
+        flat_caches(jax_layer_caches(cfg, jax.tree.map(np.asarray, caches)),
+                    "prefill/cache", rec)
+        step = jax.jit(m.decode_step)
+        steps = []
+        for i in range(MODEL_STEPS):
+            logits, caches = step(params, j["tokens"][:, s + i:s + i + 1],
+                                  caches, jnp.full((b,), s + i, jnp.int32))
+            steps.append(np.asarray(logits))
+        rec["decode/logits"] = np.stack(steps)
+        flat_caches(jax_layer_caches(cfg, jax.tree.map(np.asarray, caches)),
+                    "decode/cache", rec)
+        tmp = f"{path}.part.npz"
+        np.savez(tmp, **rec)
+        os.replace(tmp, path)
+
+    return shared_npz(tmp_path_factory, name or f"model_{arch}", make)
+
+
+def port_model(rec: dict, arch: str, **overrides):
+    """The port's model of ``arch``'s smoke config (with ``overrides``) on
+    the CPU, holding the weights a JAX leg recorded under ``param/``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import model_class
+    from repro_torch.models.weights import load_state
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **overrides)
+    return load_state(model_class(cfg)(cfg, device="cpu", init=False),
+                      prefixed(rec, "param"))
+
+
+def _close(got, want, tol: float, what: str) -> None:
+    got = np_of(got)
+    assert got.shape == np.shape(want), (what, got.shape, np.shape(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=what)
+
+
+def check_model_leg(rec: dict, arch: str, phase: str, tol: float,
+                    **overrides) -> None:
+    """The port against a `jax_model_leg` record, within ``tol``: phase
+    "train", the ``forward_train`` logits and ``loss_fn``; "prefill", the
+    prefill logits and every cache; "decode", the same prefill, then
+    every decode step's logits and every cache after the last."""
+    import torch
+
+    model = port_model(rec, arch, **overrides)
+    audio = model.cfg.family == "audio"
+    t = torch.as_tensor(rec["tokens"])
+    frames = (torch.as_tensor(rec["frames"]),) if audio else ()
+    if phase == "train":
+        _close(model.forward_train(t, *frames).detach(), rec["train"], tol,
+               "forward_train logits")
+        batch = {"tokens": t, "labels": torch.as_tensor(rec["labels"])}
+        if audio:
+            batch["frames"] = frames[0]
+        _close(model.loss_fn(batch).detach(), rec["loss"], tol, "loss")
+        return
+    s, b = MODEL_S, MODEL_B
+    caches = model.init_caches(b, s + MODEL_STEPS)
+    logits, caches = model.prefill(t[:, :s], *frames, caches)
+    if phase == "decode":
+        steps = []
+        for i in range(MODEL_STEPS):
+            lg, caches = model.decode_step(
+                t[:, s + i:s + i + 1], caches,
+                torch.full((b,), s + i, dtype=torch.int32))
+            steps.append(lg)
+        logits = torch.stack(steps)
+    _close(logits, rec[f"{phase}/logits"], tol, f"{phase} logits")
+    got = {}
+    flat_caches(caches, f"{phase}/cache", got)
+    want = {k: v for k, v in rec.items() if k.startswith(f"{phase}/cache/")}
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    for key, arr in want.items():
+        _close(got[key], arr, tol, key)
