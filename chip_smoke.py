@@ -184,6 +184,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode-step times, tokens/s, the peak memory allocated and the
    weight-read bound of a decode step.  No kernel runs in phase 9: its
    launch counters stay 0.
+10. The trainer (``repro_torch.train`` / ``optim`` / ``data`` /
+   ``checkpoint`` / ``launch.train``).  10.1: every smoke config in
+   float32 (TF32 off), drawn on the CPU: 3 steps of ``make_train_step``
+   at accum_steps 1 and 2 on ``batch_at_step`` batches of 4 x 32, each
+   taken on the card from a copy of the CPU's model and optimizer state
+   before it; the first step's gradients per leaf within 1e-4 of the
+   leaf's largest |g| (the SSD families 1e-3), each step's loss within
+   1e-5 and its grad norm within the gradients' tolerance, relative.
+   10.2: Granite-8B whole at full width (36 layers, bf16 parameters,
+   ``remat`` on, ``AdamWConfig(state_dtype="bfloat16")``), one
+   ``batch_at_step`` row of train_4k's 4096 tokens a step, 6 steps, the
+   first untimed: the median step time, tokens/s, the peak memory
+   allocated, the step's bound (6 N T plus causal attention over 989
+   TFLOP/s against the update's 14 bytes a parameter over 3.35 TB/s) and
+   its share; checked: every loss and grad norm finite, step
+   1's loss equal to ``loss_fn`` under no_grad within 1e-6 relative, no
+   element moved by more than lr_1 (1 + wd |p|) plus one bf16 step at
+   step 1, the step counter 1.  10.3: ``python -m
+   repro_torch.launch.train`` on Mamba2-370m whole in processes of their
+   own: 8 steps run through against 4 steps with a checkpoint (bf16
+   ``<V2`` leaves, float32 moments) and ``--resume`` to 8, every final
+   parameter equal bit for bit.  No kernel runs in phase 10: its launch
+   counters stay 0.  Every number printed goes with the card's name and
+   power limit.
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
 reads apart, each phase 7 run) sets the launch counters to 0 just before
@@ -202,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -612,15 +637,20 @@ def oracle_scan(live, starts, his, max_out: int):
 # --------------------------------------------------------------------------
 
 
-def card_check() -> tuple[str, str]:
-    import torch
-
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def card_check() -> tuple[str, str]:
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    card = card_name()
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.build import library
@@ -1547,7 +1577,9 @@ class RouteTap:
     moves a near-tied router to another expert, which moves the logits far
     more than the rounding itself; forcing the choice, as the tokens are
     forced, leaves the bf16 rule to judge the rest.  Prefills are not
-    touched (both sides prefill each request alone, the same way)."""
+    touched (both sides prefill each request alone, the same way).  It
+    records no-grad serve steps only, so ``remat``'s recompute (autograd
+    on) never calls it twice."""
 
     def __init__(self):
         from repro_torch.models.layers import moe as TM
@@ -3284,7 +3316,9 @@ class RouteReplay:
     its own router probabilities, and counts the (token, layer) rows whose
     own choice differs (``flips``).  A near-tied router flips under bf16
     rounding that differs between the train, prefill and absorbed decode
-    paths."""
+    paths.  Its ``forward_train`` runs under no_grad (`train_ref`), so
+    ``remat`` (on only with autograd) never recomputes it: nothing is
+    recorded twice and no replay index shifts."""
 
     def __init__(self):
         from repro_torch.models.layers import moe as TM
@@ -3758,6 +3792,363 @@ def model_only_phase(seed: int, device) -> dict:
     return dict(smoke=smoke, legs=legs, counts=counts, elapsed_s=elapsed)
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the trainer on the card
+# --------------------------------------------------------------------------
+
+# 10.1: every smoke config in float32, the card against the CPU, each step
+# from the CPU's state before it; batch_at_step batches of 4 rows x 32
+TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_STEPS = 4, 32, 3
+TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=3)
+# the first step's gradients, each leaf as a share of its largest |g|
+# (the SSD families sum a chunk's decays and states in other orders)
+TRAIN_GRAD_TOL, TRAIN_GRAD_TOL_SSD = 1e-4, 1e-3
+TRAIN_LOSS_TOL = 1e-5          # each step's loss, relative (the grad norm:
+                               # the gradients' tolerance)
+# 10.2: Granite-8B at full width, bf16 parameters and moments, one row of
+# train_4k's 4096 tokens a step, the first step untimed; None: all 36
+# layers (a cut, if one is ever needed, is a layer count, never a width)
+GRANITE_TRAIN_LAYERS = None
+GRANITE_TRAIN_STEPS = 6
+GRANITE_STEP1_LOSS_TOL = 1e-6  # relative, against loss_fn under no_grad
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
+# 10.3: the CLI on mamba2_370m whole (bf16 parameters, float32 moments),
+# killed after 4 steps and resumed to 8 against 8 run through
+RESUME_ARCH, RESUME_B, RESUME_S = "mamba2_370m", 2, 512
+RESUME_KILL, RESUME_STEPS = 4, 8
+
+
+def _opt_to(opt: dict, device) -> dict:
+    return {"m": {k: t.to(device, copy=True) for k, t in opt["m"].items()},
+            "v": {k: t.to(device, copy=True) for k, t in opt["v"].items()},
+            "step": opt["step"].to(device, copy=True)}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_smoke_legs(device, seed: int, card: str) -> list:
+    """10.1: each smoke config in float32, drawn on the CPU from ``seed``:
+    TRAIN_SMOKE_STEPS steps of ``make_train_step`` (accum_steps 1, then
+    2) on `batch_at_step` batches, each step taken on the card from a copy
+    of the CPU's model and state before it; the first step's gradients
+    per leaf within `TRAIN_GRAD_TOL` of the leaf's largest |g| (SSD
+    families `TRAIN_GRAD_TOL_SSD`), each step's loss within
+    `TRAIN_LOSS_TOL` and grad norm within the gradients' tolerance, both
+    relative."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.data import DataConfig, batch_at_step, to_device
+    from repro_torch.models.registry import api
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    ocfg = AdamWConfig(**TRAIN_SMOKE_OPT)
+    rows = []
+    for name in ARCH_IDS:
+        cfg = get_smoke_config(name)
+        tol = (TRAIN_GRAD_TOL_SSD if cfg.family in ("ssm", "hybrid")
+               else TRAIN_GRAD_TOL)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SMOKE_S,
+                          global_batch=TRAIN_SMOKE_B, seed=seed,
+                          family=cfg.family, d_model=cfg.d_model,
+                          vision_tokens=cfg.vision_tokens,
+                          encoder_seq=cfg.encoder_seq)
+        row = dict(config=cfg.name, family=cfg.family, grad_tol=tol)
+        for accum in (1, 2):
+            cpu = family_model(cfg, "cpu", seed)
+            opt = adamw_init(ocfg, dict(cpu.named_parameters()))
+            step = make_train_step(cfg, ocfg, accum_steps=accum)
+            loss_err = norm_err = 0.0
+            for k in range(TRAIN_SMOKE_STEPS):
+                batch = batch_at_step(dcfg, k)
+                gpu = copy.deepcopy(cpu).to(device)
+                gopt = _opt_to(opt, device)
+                if k == 0 and accum == 1:
+                    grads = []
+                    for model in (cpu, gpu):
+                        named = dict(model.named_parameters())
+                        for p in named.values():
+                            p.requires_grad_(True)
+                        loss = api(cfg).loss_fn(model, to_device(
+                            batch, model.device))
+                        g = torch.autograd.grad(loss, list(named.values()))
+                        grads.append({n: t.detach().float().cpu()
+                                      for n, t in zip(named, g)})
+                    errs = {n: float((grads[1][n] - w).abs().max()
+                                     / max(float(w.abs().max()), 1e-30))
+                            for n, w in grads[0].items()}
+                    worst = max(errs, key=errs.get)
+                    check(errs[worst] <= tol,
+                          f"10.1 {name}: the card's gradient of {worst} "
+                          f"differs from the CPU's by {errs[worst]} of its "
+                          f"largest |g| (> {tol})")
+                    row.update(grad_rel_err=errs[worst], grad_worst=worst,
+                               leaves=len(errs))
+                _, _, mg = step(gpu, gopt, to_device(batch, device))
+                _, opt, mc = step(cpu, opt, to_device(batch, "cpu"))
+                le = _rel(float(mg["loss"]), float(mc["loss"]))
+                ne = _rel(float(mg["grad_norm"]), float(mc["grad_norm"]))
+                check(le <= TRAIN_LOSS_TOL and ne <= tol,
+                      f"10.1 {name} accum {accum} step {k}: the card's loss "
+                      f"/ grad norm differ from the CPU's by {le} / {ne} "
+                      f"(> {TRAIN_LOSS_TOL} / {tol})")
+                check(int(gopt["step"]) == k + 1, f"10.1 {name}: step count")
+                loss_err, norm_err = max(loss_err, le), max(norm_err, ne)
+            row[f"accum{accum}_loss_rel_err"] = loss_err
+            row[f"accum{accum}_grad_norm_rel_err"] = norm_err
+            row[f"accum{accum}_last_loss"] = float(mc["loss"])
+            del gpu, gopt
+        log(json.dumps({"train_smoke": row, "card": card}))
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_step_bound(cfg, n_params: int, seq: int) -> dict:
+    """The least time of one bf16 train step over one row of ``seq``
+    tokens: the operations (6 N T for the products; 6 L H hd S^2 for
+    causal attention's two products, forward and back, half of the 12 L H
+    hd S^2 a full square takes) over the card's dense bf16 rate, and the
+    update's bytes (read p, g, m, v once, write p, m, v once: 14 bytes a
+    parameter) over its memory rate; the larger of the two."""
+    flops = (6 * n_params * seq + 6 * cfg.num_layers * cfg.num_heads
+             * cfg.head_dim * seq * seq)
+    nbytes = 14 * n_params
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(flops=flops, update_bytes=nbytes, ops_ms=ops_ms,
+                bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def granite_train_leg(device, seed: int) -> dict:
+    """10.2: Granite-8B at full width (``remat`` on, the config's
+    default), bf16 parameters and moments (``AdamWConfig(state_dtype=
+    "bfloat16")``), one `batch_at_step` row of 4096 tokens a step,
+    GRANITE_TRAIN_STEPS steps, the first untimed.  Checks: every loss and
+    grad norm finite; step 1's loss equals ``loss_fn`` under no_grad on
+    the same batch and weights within GRANITE_STEP1_LOSS_TOL; after step
+    1 every parameter moved by at most ``lr_1 (1 + wd |p|)`` plus one
+    bf16 step (Adam's first step is +-1 a lane); the step counter 1."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at_step, to_device
+    from repro_torch.models.registry import SHAPES, api
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_lr
+    from repro_torch.train import make_train_step
+
+    cfg = get_config("granite_8b")
+    if GRANITE_TRAIN_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, num_layers=GRANITE_TRAIN_LAYERS)
+    seq = SHAPES["train_4k"][0]
+    ocfg = AdamWConfig(state_dtype="bfloat16")
+    model = family_model(cfg, device, seed)
+    params = dict(model.named_parameters())
+    opt = adamw_init(ocfg, params)
+    step = make_train_step(cfg, ocfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=1,
+                      seed=seed)
+    batches = [to_device(batch_at_step(dcfg, k), device)
+               for k in range(GRANITE_TRAIN_STEPS)]
+    with torch.no_grad():
+        ref_loss = float(api(cfg).loss_fn(model, batches[0]))
+    before = {k: p.detach().to("cpu", copy=True) for k, p in params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, mets = [], []
+    for k in range(GRANITE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, met = step(model, opt, batches[k])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        mets.append({key: float(v) for key, v in met.items()})
+        check(all(map(math.isfinite, mets[-1].values())),
+              f"10.2 step {k + 1}: {mets[-1]}")
+        if k == 0:
+            moved = step1_moves(params, before, ocfg, cosine_lr(ocfg, 1))
+            before = None
+            check(int(opt["step"]) == 1, "10.2: the step counter is not 1")
+            check(_rel(mets[0]["loss"], ref_loss) <= GRANITE_STEP1_LOSS_TOL,
+                  f"10.2: step 1's loss {mets[0]['loss']} != loss_fn's "
+                  f"{ref_loss}")
+    peak = torch.cuda.max_memory_allocated()
+    n = model.param_count()
+    step_ms = statistics.median(ms[1:])
+    bound = train_step_bound(cfg, n, seq)
+    row = dict(config=cfg.name, layers=cfg.num_layers, params=n, tokens=seq,
+               remat=cfg.remat, state_dtype=ocfg.state_dtype,
+               step_ms=step_ms, first_step_ms=ms[0], steps_ms=ms,
+               tokens_per_s=seq / step_ms * 1e3, peak_bytes=peak,
+               loss=[m["loss"] for m in mets],
+               grad_norm=[m["grad_norm"] for m in mets],
+               lr=[m["lr"] for m in mets], step1_ref_loss=ref_loss,
+               **moved, **bound, share_of_bound=bound["bound_ms"] / step_ms)
+    del model, params, opt, batches, step
+    release()
+    return row
+
+
+def step1_moves(params: dict, before: dict, ocfg, lr1) -> dict:
+    """Every parameter after AdamW's first step against its value before
+    (``before``, on the host): |p1 - p0| <= lr_1 (1 + wd |p0|) + one bf16
+    step of max(|p0|, |p1|) (the first moment over the root of the second
+    is +-1 up to float32 rounding: 1e-5 of slack on the first term).
+    Returns the largest move and the share of elements that moved."""
+    import torch
+
+    lr1 = float(lr1)
+    worst, moved, total = 0.0, 0, 0
+    for k, p in params.items():
+        p0 = before[k].to(p.device).float()
+        p1 = p.detach().float()
+        d = (p1 - p0).abs()
+        mag = torch.maximum(p0.abs(), p1.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(
+            mag, min=torch.finfo(torch.float32).tiny))) - 7)
+        limit = lr1 * (1 + ocfg.weight_decay * p0.abs()) * (1 + 1e-5) + ulp
+        bad = int((d > limit).sum())
+        check(bad == 0, f"10.2: {bad} elements of {k} moved more than "
+                        f"lr_1 (1 + wd |p|) + one bf16 step at step 1")
+        worst = max(worst, float(d.max()))
+        moved += int((d > 0).sum())
+        total += d.numel()
+    return dict(step1_lr=lr1, step1_max_move=worst,
+                step1_moved_share=moved / total)
+
+
+def _param_digests(code_out: str) -> dict:
+    """The per-leaf digests a `resume_run` printed on its last line."""
+    return json.loads(code_out.strip().splitlines()[-1])["digests"]
+
+
+RESUME_CODE = r'''
+import hashlib, json, sys
+import torch
+from repro_torch.launch import train as TR
+model = TR.main(sys.argv[1:])
+out = {}
+for k, p in model.named_parameters():
+    t = p.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    out[k] = hashlib.sha256(t.numpy().tobytes()).hexdigest()
+print(json.dumps({"digests": out}))
+'''
+
+
+def resume_run(args: list, env: dict):
+    """Start the CLI (`launch.train.main` with ``args``) in a process of its
+    own, which prints a digest of each final parameter's bits."""
+    return subprocess.Popen(
+        [sys.executable, "-c", RESUME_CODE, *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc, where: str, timeout: int = 600) -> str:
+    """Wait for ``proc`` (killed past ``timeout``); its standard output,
+    or a `SmokeError` with the end of its errors if it failed."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeError(f"{where}: the run did not end in {timeout} s")
+    check(proc.returncode == 0, f"{where} failed:\n{err[-4000:]}")
+    return out
+
+
+def resume_leg() -> dict:
+    """10.3: the CLI on `RESUME_ARCH` whole: RESUME_STEPS steps run
+    through (in parallel with the next run), against RESUME_KILL steps
+    with a checkpoint, then ``--resume`` to RESUME_STEPS, each in a process
+    of its own; every final parameter equal bit for bit (sha256 of its
+    bits).  The checkpoints (bf16 parameters as ``<V2`` leaves, float32
+    moments) live in a temporary directory under ``build/``, removed
+    afterwards; the first step's (step 1) is removed before the resume."""
+    import os
+    import shutil
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = ["--arch", RESUME_ARCH, "--batch", str(RESUME_B), "--seq",
+            str(RESUME_S), "--log-every", "1"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="resume_", dir=ROOT / "build"))
+    ck = ["--ckpt-dir", str(d), "--ckpt-every", "100"]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs.append(resume_run(base + ["--steps", str(RESUME_STEPS)], env))
+        procs.append(resume_run(base + ["--steps", str(RESUME_KILL)] + ck,
+                                env))
+        finish(procs[1], "10.3 the killed run")
+        saved = sorted(p.name for p in d.glob("step_*"))
+        check(saved[-1] == f"step_{RESUME_KILL:08d}",
+              f"10.3: checkpoints {saved}")
+        size = sum(f.stat().st_size for f in (d / saved[-1]).iterdir())
+        shutil.rmtree(d / saved[0])
+        procs.append(resume_run(base + ["--steps", str(RESUME_STEPS),
+                                        "--resume"] + ck, env))
+        out_rest = finish(procs[2], "10.3 the resumed run")
+        out_whole = finish(procs[0], "10.3 the run through")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(d, ignore_errors=True)
+    check(f"resumed from step {RESUME_KILL}" in out_rest,
+          "10.3: the second run did not resume")
+    a, b = _param_digests(out_whole), _param_digests(out_rest)
+    differ = sorted(k for k in a if a[k] != b.get(k))
+    check(set(a) == set(b) and not differ,
+          f"10.3: killed + resumed differs from the run through in "
+          f"{len(differ)} of {len(a)} parameters: {differ[:8]}")
+    return dict(config=RESUME_ARCH, batch=RESUME_B, seq=RESUME_S,
+                steps=RESUME_STEPS, killed_at=RESUME_KILL,
+                params_equal=len(a), checkpoint_bytes=size,
+                log=[line for line in out_whole.splitlines()
+                     if line.startswith("[train] step")],
+                elapsed_s=time.perf_counter() - t0)
+
+
+def train_phase(seed: int, device) -> dict:
+    """Phase 10, in order: 10.1 the smoke configs card against CPU, 10.2
+    Granite-8B at full width, 10.3 kill and resume through the CLI.  The
+    launch counters are 0 before and after: the trainer runs no kernel of
+    the repo (JAX's trainer has no Pallas call)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    t0 = time.perf_counter()
+    reset_counts()
+    smoke = train_smoke_legs(device, seed, card)
+    log(f"phase 10.1 done at {time.perf_counter() - t0:.1f} s")
+    granite = granite_train_leg(device, seed)
+    log(json.dumps({"train_granite": granite, "card": card}))
+    log(f"phase 10.2 done at {time.perf_counter() - t0:.1f} s")
+    resume = resume_leg()
+    log(json.dumps({"train_resume": resume, "card": card}))
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"phase 10 launched a kernel or a plain version: {counts}")
+    elapsed = time.perf_counter() - t0
+    log(f"phase 10 done in {elapsed:.1f} s ({card})")
+    return dict(card=card, smoke=smoke, granite=granite, resume=resume,
+                counts=counts, elapsed_s=elapsed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3789,10 +4180,10 @@ def main() -> int:
 
 
 def run_phases(seed: int, device):
-    """Phases 2-9 on ``device``; returns (the rows of the kernels line, the
-    serve phase's results, the forest phase's under ``"forest"``, phase
-    7's under ``"comparison"``, phase 8's under ``"zoo"`` and phase 9's
-    under ``"model_only"``)."""
+    """Phases 2-10 on ``device``; returns (the rows of the kernels line,
+    the serve phase's results, the forest phase's under ``"forest"``,
+    phase 7's under ``"comparison"``, phase 8's under ``"zoo"``, phase 9's
+    under ``"model_only"`` and phase 10's under ``"train"``)."""
     import numpy as np
     import torch
 
@@ -3841,6 +4232,8 @@ def run_phases(seed: int, device):
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     serve["model_only"] = model_only_phase(seed, device)
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    serve["train"] = train_phase(seed, device)
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",

@@ -12,7 +12,10 @@ Caches are stacked over the decoder layers, as JAX's are: ``k`` / ``v``
 (L, B, max_len, KVH, HD) for self-attention, written in place at each step,
 and ``ck`` / ``cv`` (L, B, T_enc, KVH, HD) for cross-attention, computed
 once by the prefill.  As in `transformer`, ``forward_train`` and
-``loss_fn`` keep autograd, and ``remat`` / ``unroll`` have no effect.
+``loss_fn`` keep autograd; with ``cfg.remat`` and autograd on, each
+encoder and each decoder layer is checkpointed (keeping only its inputs,
+whatever ``remat_policy`` says, as JAX's ``nothing_saveable`` does
+here).  ``unroll`` has no effect.
 """
 
 from __future__ import annotations
@@ -38,7 +41,12 @@ from repro_torch.models.layers.basic import (
     dtype_of,
     mlp_apply,
 )
-from repro_torch.models.transformer import LanguageModel, _generator, xent
+from repro_torch.models.transformer import (
+    LanguageModel,
+    _generator,
+    remat,
+    xent,
+)
 
 
 class EncoderLayer(nn.Module):
@@ -137,13 +145,19 @@ class EncDec(LanguageModel):
 
     def encode(self, frames) -> torch.Tensor:
         """frames (B, T_enc, D) stub embeddings -> the encoder output."""
+        cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(self.act_dtype)
         b, t, _ = x.shape
         positions = self._positions(b, t)
-        for lp in self.encoder:
-            x = x + attn_train(lp.attn, self.cfg, lp.norm1(x), positions,
+
+        def layer_fn(lp, x):
+            x = x + attn_train(lp.attn, cfg, lp.norm1(x), positions,
                                causal=False)
-            x = x + mlp_apply(lp.mlp, lp.norm2(x))
+            return x + mlp_apply(lp.mlp, lp.norm2(x))
+
+        on = cfg.remat and torch.is_grad_enabled()
+        for lp in self.encoder:
+            x = remat("nothing", layer_fn, lp, x) if on else layer_fn(lp, x)
         return self.enc_norm(x)
 
     def _cross_and_mlp(self, lp: DecoderLayer, x, ck, cv):
@@ -154,14 +168,21 @@ class EncDec(LanguageModel):
 
     def forward_train(self, tokens, frames) -> torch.Tensor:
         """tokens (B, S), frames (B, T_enc, D) -> logits (B, S, V)."""
+        cfg = self.cfg
         enc_out = self.encode(frames)
         x = self._embed(tokens)
         positions = self._positions(*x.shape[:2])
+
+        def layer_fn(lp, x, enc_out):
+            x = x + attn_train(lp.self_attn, cfg, lp.norm1(x), positions,
+                               causal=True)
+            ck, cv = _cross_kv(lp.cross_attn, cfg, enc_out)
+            return self._cross_and_mlp(lp, x, ck, cv)
+
+        on = cfg.remat and torch.is_grad_enabled()
         for lp in self.decoder:
-            x = x + attn_train(lp.self_attn, self.cfg, lp.norm1(x),
-                               positions, causal=True)
-            ck, cv = _cross_kv(lp.cross_attn, self.cfg, enc_out)
-            x = self._cross_and_mlp(lp, x, ck, cv)
+            x = (remat("nothing", layer_fn, lp, x, enc_out) if on
+                 else layer_fn(lp, x, enc_out))
         return self._logits(x)
 
     def loss_fn(self, batch: dict) -> torch.Tensor:

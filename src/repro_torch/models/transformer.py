@@ -18,9 +18,12 @@ points, as in the JAX module:
 
 ``forward_train`` and ``loss_fn`` keep autograd (the parameters are made
 with ``requires_grad=False``; a trainer turns it on); ``prefill`` and
-``decode_step`` run without it.  The layers are a list, so the JAX
-config's ``remat``, ``remat_policy`` and ``unroll`` (checkpointing and
-scan unrolling) have no effect here.
+``decode_step`` run without it.  With ``cfg.remat`` and autograd on,
+``forward_train`` checkpoints each repetition of the pattern's slots
+(`remat`, the counterpart of ``jax.checkpoint`` on the scan body), and
+each layer inside it when the period is more than 1; the prologue layers
+are not checkpointed, as in JAX.  The layers are a list, so ``unroll``
+(scan unrolling) has no effect here.
 
 VLM family: ``vision_embeds`` (B, vision_tokens, D), precomputed patch
 embeddings (the JAX package's frontend stub), go in front of the token
@@ -34,8 +37,11 @@ explicit ``torch.Generator``, with the JAX initializer's fan-in scaling.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.deltatree import resolve_device
 from repro_torch.models import blocks as B
@@ -75,6 +81,29 @@ def _slot_kinds(cfg: ModelConfig) -> list:
                 raise ValueError(f"layer {i} of {cfg.name} breaks the "
                                  f"pattern of slot {j}: {kinds[j]}")
     return kinds
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the weight products' outputs (``x @
+    W`` reaches ``aten.mm``; the attention's batched products reach
+    ``bmm`` and are recomputed), as ``dots_with_no_batch_dims_saveable``
+    keeps JAX's dot products without batch dimensions."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)`` under activation checkpointing, recomputed in the
+    backward: ``policy`` "nothing" keeps only the inputs, "dots" also the
+    weight products (``cfg.remat_policy``)."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_products)
+    elif policy != "nothing":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -186,9 +215,29 @@ class Transformer(LanguageModel):
 
     def forward_train(self, tokens, vision_embeds=None) -> torch.Tensor:
         """tokens (B, S_text) -> logits (B, S_total, V) float32."""
+        cfg = self.cfg
         x, positions = self._embed_inputs(tokens, vision_embeds)
-        for layer in self.layers:
-            x = B.block_train(layer, self.cfg, x, positions)
+        n_pro, period, reps = _layout(cfg)
+        on = cfg.remat and torch.is_grad_enabled()
+
+        def layer_fn(layer, x):
+            return B.block_train(layer, cfg, x, positions)
+
+        for layer in self.layers[:n_pro]:
+            x = layer_fn(layer, x)
+
+        def body(x, *slots):
+            for layer in slots:
+                # nested per-layer remat bounds the backward's live set to
+                # one layer of a multi-layer pattern (JAX's nesting)
+                x = (remat(cfg.remat_policy, layer_fn, layer, x)
+                     if on and period > 1 else layer_fn(layer, x))
+            return x
+
+        for r in range(reps):
+            slots = self.layers[n_pro + r * period:n_pro + (r + 1) * period]
+            x = (remat(cfg.remat_policy, body, x, *slots) if on
+                 else body(x, *slots))
         return self._logits(x)
 
     def loss_fn(self, batch: dict) -> torch.Tensor:

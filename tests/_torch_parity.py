@@ -716,3 +716,132 @@ def check_model_leg(rec: dict, arch: str, phase: str, tol: float,
     assert set(got) == set(want), (sorted(got), sorted(want))
     for key, arr in want.items():
         _close(got[key], arr, tol, key)
+
+
+# The trainer's parity legs: `batch_at_step` batches of TRAIN_B rows of
+# TRAIN_S tokens, TRAIN_STEPS steps of AdamWConfig(**TRAIN_OPT) (a warm-up
+# step, the peak, then the floor), and for ACCUM_ARCHS (a dense and a MoE
+# config) the same at accum_steps=2 over TRAIN_ACCUM_B rows (microbatch a
+# takes rows 2b + a; MoE capacity sees each microbatch's tokens).
+TRAIN_S, TRAIN_B, TRAIN_ACCUM_B, TRAIN_STEPS = 32, 2, 4, 3
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=3)
+ACCUM_ARCHS = ("granite_8b", "phi3_5_moe_42b")
+
+
+def train_data(cfg, batch: int) -> dict:
+    """`DataConfig` fields of the trainer's legs for ``cfg`` (either
+    package's config)."""
+    return dict(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                global_batch=batch, family=cfg.family, d_model=cfg.d_model,
+                vision_tokens=cfg.vision_tokens, encoder_seq=cfg.encoder_seq)
+
+
+def train_legs(arch: str) -> tuple:
+    """(tag, accum_steps, rows) of each train leg of ``arch``."""
+    legs = (("a1", 1, TRAIN_B),)
+    return legs + ((("a2", 2, TRAIN_ACCUM_B),) if arch in ACCUM_ARCHS else ())
+
+
+def jax_params(cfg, flat: dict) -> dict:
+    """The JAX package's params tree holding port-named arrays ``flat``
+    (the inverse of `weights.jax_state_dict`): dotted names nest as dicts,
+    the decoder's layers go to ``prologue`` and the pattern's ``slots``
+    (stacked over the repetitions), the encoder-decoder's are stacked
+    over L."""
+    def nest(prefix: str) -> dict:
+        out: dict = {}
+        for k, v in flat.items():
+            if k.startswith(prefix + "."):
+                *path, leaf = k[len(prefix) + 1:].split(".")
+                d = out
+                for part in path:
+                    d = d.setdefault(part, {})
+                d[leaf] = v
+        return out
+
+    def stack(trees: list):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    tree = {"embed": nest("embed"), "final_norm": nest("final_norm")}
+    if cfg.family == "audio":
+        tree["enc_norm"] = nest("enc_norm")
+        for part, n in (("encoder", cfg.encoder_layers),
+                        ("decoder", cfg.num_layers)):
+            tree[part] = stack([nest(f"{part}.{i}") for i in range(n)])
+        return tree
+    from repro_torch.models.transformer import _layout
+
+    n_pro, period, reps = _layout(cfg)
+    tree["prologue"] = [nest(f"layers.{i}") for i in range(n_pro)]
+    tree["slots"] = [stack([nest(f"layers.{n_pro + r * period + j}")
+                            for r in range(reps)]) for j in range(period)]
+    return tree
+
+
+def jax_train_leg(tmp_path_factory, arch: str) -> dict:
+    """The JAX side of the trainer's legs, once per test run
+    (`shared_npz`): the port's smoke model from seed 0 carried to a JAX
+    params tree (``param/``, the port's names; `jax_params`), then for
+    each of `train_legs` TRAIN_STEPS steps of ``make_train_step`` under a
+    plain ``jax.jit`` (the JAX trainer's only mesh-free path), jitted
+    together with ``jax.grad(loss_fn)`` of the step's params and batch
+    (one compile): ``grad/`` at step 0 of the first leg, the metrics of
+    each step (``<tag>/loss``, ``/grad_norm``, ``/lr``) and the params and
+    moments after step k (``<tag>/s<k>/param/``, ``/m/``, ``/v/``)."""
+    def make(path):
+        import os
+
+        import jax
+        import jax.numpy as jnp
+
+        from repro.configs import get_smoke_config
+        from repro.data import DataConfig, batch_at_step
+        from repro.models.registry import api
+        from repro.optim import AdamWConfig, adamw_init
+        from repro.train import make_train_step
+        from repro_torch.configs import get_smoke_config as port_smoke
+        from repro_torch.models.registry import api as port_api
+        from repro_torch.models.weights import jax_state_dict
+
+        cfg = get_smoke_config(arch)
+        m = api(cfg)
+        model = port_api(port_smoke(arch)).init_params(device="cpu", seed=0)
+        rec = {f"param/{k}": v.detach().numpy().copy()
+               for k, v in model.state_dict().items()}
+        params = jax.tree.map(jnp.asarray, jax_params(cfg, prefixed(
+            rec, "param")))
+
+        def put(prefix, tree):
+            flat = jax_state_dict(cfg, jax.tree.map(np.asarray, tree))
+            rec.update({f"{prefix}/{k}": np.asarray(v)
+                        for k, v in flat.items()})
+
+        def batch(rows, step):
+            b = batch_at_step(DataConfig(**train_data(cfg, rows)), step)
+            return {k: jnp.asarray(v) for k, v in b.items()}
+
+        ocfg = AdamWConfig(**TRAIN_OPT)
+        for tag, accum, rows in train_legs(arch):
+            ts = make_train_step(cfg, ocfg, accum_steps=accum)
+            step = jax.jit(lambda p, o, b, ts=ts: (
+                ts(p, o, b), jax.grad(m.loss_fn)(p, b)))
+            p, o = params, adamw_init(ocfg, params)
+            mets = []
+            for k in range(TRAIN_STEPS):
+                (p2, o, met), g = step(p, o, batch(rows, k))
+                if tag == "a1" and k == 0:
+                    put("grad", g)
+                p = p2
+                mets.append(met)
+                put(f"{tag}/s{k}/param", p)
+                put(f"{tag}/s{k}/m", o["m"])
+                put(f"{tag}/s{k}/v", o["v"])
+            for key in ("loss", "grad_norm", "lr"):
+                rec[f"{tag}/{key}"] = np.asarray([x[key] for x in mets])
+        tmp = f"{path}.part.npz"
+        np.savez(tmp, **rec)
+        os.replace(tmp, path)
+
+    return shared_npz(tmp_path_factory, f"train_{arch}", make)

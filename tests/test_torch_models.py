@@ -413,8 +413,8 @@ def _batch(cfg, rng, b: int, s: int) -> dict:
 def test_loss_and_gradients_finite(name):
     """The port's ``loss_fn`` is differentiable for every family: a finite
     loss, a finite gradient on every parameter, not all zero (the JAX
-    ``test_arch_smoke_forward_and_train_step``'s check; gradient parity
-    with JAX waits for the trainer)."""
+    ``test_arch_smoke_forward_and_train_step``'s check; the gradients'
+    parity with ``jax.grad`` is held in ``tests/test_torch_train.py``)."""
     cfg = get_smoke_config(name)
     m = TR.api(cfg)
     model = m.init_params(device="cpu", seed=0).requires_grad_(True)

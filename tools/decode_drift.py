@@ -5,9 +5,13 @@ stream after each block), on one card.
 
     python3 tools/decode_drift.py [--arch mamba2_370m] [--dtype bfloat16]
         [--layers N] [--batch 4] [--prompt 8192] [--steps 64] [--seed 0]
+        [--ckpt DIR]
 
 The model is ``arch``'s full config (``--layers`` cuts its depth) with
-weights drawn on the card from ``--seed`` (`registry.api`), in ``--dtype``.
+weights drawn on the card from ``--seed`` (`registry.api`), in ``--dtype``;
+with ``--ckpt`` the weights of the latest checkpoint the trainer wrote
+there (``python -m repro_torch.launch.train --arch A --ckpt-dir DIR``)
+replace them.
 It runs ``forward_train`` over batch x (prompt + steps) seeded tokens, then
 a prefill of the prompt and ``steps`` decode steps fed the next tokens,
 recording every block's output at the prompt's last position and at each
@@ -30,7 +34,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def drift(arch: str, dtype: str, layers: int | None, b: int, s0: int,
-          steps: int, seed: int, device: str = "cuda") -> dict:
+          steps: int, seed: int, device: str = "cuda",
+          ckpt: str | None = None) -> dict:
     import numpy as np
     import torch
 
@@ -43,6 +48,17 @@ def drift(arch: str, dtype: str, layers: int | None, b: int, s0: int,
                               num_layers=layers or get_config(arch).num_layers)
     dev = torch.device(device)
     model = api(cfg).init_params(device=dev, seed=seed)
+    ckpt_step = None
+    if ckpt is not None:
+        from repro_torch.checkpoint import CheckpointManager
+
+        params = dict(model.named_parameters())
+        ckpt_step, (saved,), _ = CheckpointManager(ckpt).restore(
+            None, (params,), device=dev)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved[k])
+        del saved
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, (b, s0 + steps)), dtype=torch.int32, device=dev)
     rec = {"train": [], "prefill": [], "decode": []}
@@ -86,6 +102,7 @@ def drift(arch: str, dtype: str, layers: int | None, b: int, s0: int,
     dec = rec["decode"]
     return dict(
         arch=arch, dtype=dtype, layers=n, batch=b, prompt=s0, steps=steps,
+        ckpt_step=ckpt_step,
         device=(torch.cuda.get_device_name(0) if dev.type == "cuda"
                 else dev.type),
         max_logit=float(want.abs().max()),
@@ -109,6 +126,8 @@ def main() -> int:
     ap.add_argument("--prompt", type=int, default=8192)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="a trainer's checkpoint directory to load")
     args = ap.parse_args()
 
     import torch
@@ -119,7 +138,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     print(json.dumps(drift(args.arch, args.dtype, args.layers, args.batch,
-                           args.prompt, args.steps, args.seed)))
+                           args.prompt, args.steps, args.seed,
+                           ckpt=args.ckpt)))
     return 0
 
 
