@@ -208,6 +208,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    parameter equal bit for bit.  No kernel runs in phase 10: its launch
    counters stay 0.  Every number printed goes with the card's name and
    power limit.
+11. The dry-run (``repro_torch.launch.dryrun``: the port's step counted on
+   the meta device, ``analysis.count``).  11.1: ``run_cell`` over
+   ``DRYRUN_CELLS`` on the host (every decode_32k cell, both long_500k
+   cells, Whisper-base's train_4k and prefill_32k: every family and step
+   kind), each record's
+   peak, FLOPs, bytes and bottleneck printed; then at every smoke config
+   (``remat`` on, train at accum_steps 2) and step kind, the card's count
+   of the step equals the meta device's (FLOPs, bytes, ops).  11.2 runs
+   inside phase 10: the dry-run's count of 10.2's train step (train_4k
+   at one row, accum_steps 1), printed before 10.2's model is built;
+   after 10.2's timed steps one more step of its model under the same
+   counters, the peak statistics reset just before it: the card's FLOPs
+   and bytes equal the count's, ``max_memory_allocated`` within 5 % of
+   its peak; the roofline's compute and memory terms beside 10.2's
+   median step.  11.3: the same for one dense decode_32k step of that
+   model at 8 rows (zero caches, 38.7 GB in bf16, every row at the last
+   position; its logits finite), after 10.2's optimizer state is freed.
+   11.4: a search batch of 1024 keys on phase 3's tree under the
+   ``lockstep`` and ``scalar`` engines, and on a forest of 8 shards of
+   the same keys (the median of 3 after an untimed one, the engines'
+   results equal): the faster must be ``core.engine.AUTO_TABLE``'s
+   ``cuda`` row, and ``make_index(..., engine="auto")`` on the card must
+   resolve to it.  No kernel runs in 11.1-11.3 (their counters stay 0).
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
 reads apart, each phase 7 run) sets the launch counters to 0 just before
@@ -225,6 +248,7 @@ The second-to-last line is ``{"kernels": [...]}`` (rows 2-4 also carry
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -3805,10 +3829,8 @@ TRAIN_SMOKE_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=3)
 TRAIN_GRAD_TOL, TRAIN_GRAD_TOL_SSD = 1e-4, 1e-3
 TRAIN_LOSS_TOL = 1e-5          # each step's loss, relative (the grad norm:
                                # the gradients' tolerance)
-# 10.2: Granite-8B at full width, bf16 parameters and moments, one row of
-# train_4k's 4096 tokens a step, the first step untimed; None: all 36
-# layers (a cut, if one is ever needed, is a layer count, never a width)
-GRANITE_TRAIN_LAYERS = None
+# 10.2: Granite-8B at full width and depth, bf16 parameters and moments,
+# one row of train_4k's 4096 tokens a step, the first step untimed
 GRANITE_TRAIN_STEPS = 6
 GRANITE_STEP1_LOSS_TOL = 1e-6  # relative, against loss_fn under no_grad
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16, NVIDIA data sheet
@@ -3926,7 +3948,7 @@ def train_step_bound(cfg, n_params: int, seq: int) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def granite_train_leg(device, seed: int) -> dict:
+def granite_train_leg(device, seed: int):
     """10.2: Granite-8B at full width (``remat`` on, the config's
     default), bf16 parameters and moments (``AdamWConfig(state_dtype=
     "bfloat16")``), one `batch_at_step` row of 4096 tokens a step,
@@ -3934,9 +3956,9 @@ def granite_train_leg(device, seed: int) -> dict:
     grad norm finite; step 1's loss equals ``loss_fn`` under no_grad on
     the same batch and weights within GRANITE_STEP1_LOSS_TOL; after step
     1 every parameter moved by at most ``lr_1 (1 + wd |p|)`` plus one
-    bf16 step (Adam's first step is +-1 a lane); the step counter 1."""
-    import dataclasses
-
+    bf16 step (Adam's first step is +-1 a lane); the step counter 1.
+    Returns (the row, the model, its optimizer state, step 1's batch) for
+    phase 11.2-11.3."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3946,8 +3968,6 @@ def granite_train_leg(device, seed: int) -> dict:
     from repro_torch.train import make_train_step
 
     cfg = get_config("granite_8b")
-    if GRANITE_TRAIN_LAYERS is not None:
-        cfg = dataclasses.replace(cfg, num_layers=GRANITE_TRAIN_LAYERS)
     seq = SHAPES["train_4k"][0]
     ocfg = AdamWConfig(state_dtype="bfloat16")
     model = family_model(cfg, device, seed)
@@ -3992,9 +4012,7 @@ def granite_train_leg(device, seed: int) -> dict:
                grad_norm=[m["grad_norm"] for m in mets],
                lr=[m["lr"] for m in mets], step1_ref_loss=ref_loss,
                **moved, **bound, share_of_bound=bound["bound_ms"] / step_ms)
-    del model, params, opt, batches, step
-    release()
-    return row
+    return row, model, opt, batches[0]
 
 
 def step1_moves(params: dict, before: dict, ocfg, lr1) -> dict:
@@ -4123,9 +4141,11 @@ def resume_leg() -> dict:
 
 def train_phase(seed: int, device) -> dict:
     """Phase 10, in order: 10.1 the smoke configs card against CPU, 10.2
-    Granite-8B at full width, 10.3 kill and resume through the CLI.  The
-    launch counters are 0 before and after: the trainer runs no kernel of
-    the repo (JAX's trainer has no Pallas call)."""
+    Granite-8B at full width (with phase 11.2-11.3 on its model: the
+    dry-run's predictions before it is built, the counted train and
+    decode steps after its timed steps), 10.3 kill and resume through the
+    CLI.  The launch counters are 0 before and after: the trainer runs no
+    kernel of the repo (JAX's trainer has no Pallas call)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
@@ -4135,9 +4155,18 @@ def train_phase(seed: int, device) -> dict:
     reset_counts()
     smoke = train_smoke_legs(device, seed, card)
     log(f"phase 10.1 done at {time.perf_counter() - t0:.1f} s")
-    granite = granite_train_leg(device, seed)
+    predicted = granite_predictions(card)
+    granite, model, opt, batch = granite_train_leg(device, seed)
     log(json.dumps({"train_granite": granite, "card": card}))
     log(f"phase 10.2 done at {time.perf_counter() - t0:.1f} s")
+    dry = {"train": counted_train_step(model, opt, batch, predicted["train"],
+                                       granite, card)}
+    del opt, batch
+    release()
+    dry["decode"] = counted_decode_step(model, predicted["decode"], card)
+    del model
+    release()
+    log(f"phase 11.2-11.3 done at {time.perf_counter() - t0:.1f} s")
     resume = resume_leg()
     log(json.dumps({"train_resume": resume, "card": card}))
     counts = read_counts()
@@ -4146,7 +4175,309 @@ def train_phase(seed: int, device) -> dict:
     elapsed = time.perf_counter() - t0
     log(f"phase 10 done in {elapsed:.1f} s ({card})")
     return dict(card=card, smoke=smoke, granite=granite, resume=resume,
-                counts=counts, elapsed_s=elapsed)
+                dryrun=dry, counts=counts, elapsed_s=elapsed)
+
+# --------------------------------------------------------------------------
+# phase 11: the dry-run (launch.dryrun) against the card
+# --------------------------------------------------------------------------
+
+# 11.1: the cells counted on the host (the whole sweep, 32 cells, takes
+# most of an hour of host time; these cover every family and every step
+# kind in under a minute)
+DRYRUN_CELLS = tuple((a, "decode_32k") for a in (
+    "jamba_1_5_large_398b", "mamba2_370m", "qwen1_5_110b", "starcoder2_15b",
+    "mistral_nemo_12b", "granite_8b", "internvl2_2b", "whisper_base",
+    "phi3_5_moe_42b", "deepseek_v2_236b")) + (
+    ("mamba2_370m", "long_500k"), ("jamba_1_5_large_398b", "long_500k"),
+    ("whisper_base", "train_4k"), ("whisper_base", "prefill_32k"))
+DRYRUN_SMOKE = (2, 24, 32)     # 11.1's smoke steps: rows, tokens, cache
+DRYRUN_PEAK_TOL = 0.05         # 11.2-11.3: card peak against the predicted
+DECODE_ROWS = 8                # 11.3: decode_32k's 128 rows cut to 8
+AUTO_SHARDS = 8                # 11.4: the forest's shards (phase 6's most)
+AUTO_REPS = 3                  # 11.4: timed search batches an engine
+
+
+def dryrun_summary(rec: dict) -> dict:
+    """What 11.1-11.3 print of a dry-run record."""
+    rf = rec["roofline"]
+    return dict(arch=rec["arch"], shape=rec["shape"], kind=rec["step_kind"],
+                batch=rec["batch"], accum_steps=rec["accum_steps"],
+                peak_gb=rec["memory"]["peak_bytes"] / 1e9,
+                argument_gb=rec["memory"]["argument_size_bytes"] / 1e9,
+                flops=rec["cost_analysis"]["flops"],
+                bytes=rec["cost_analysis"]["bytes accessed"],
+                compute_ms=rf["compute_s"] * 1e3,
+                memory_ms=rf["memory_s"] * 1e3, bottleneck=rf["bottleneck"],
+                useful_flops_ratio=rf["useful_flops_ratio"],
+                ops=rec["ops"], count_s=rec["compile_s"])
+
+
+def granite_predictions(card: str) -> dict:
+    """11.2-11.3's predictions, counted on the meta device before 10.2's
+    model exists: phase 10.2's train step (train_4k at one row,
+    accum_steps 1, the config's ``remat``, bf16 parameters and moments)
+    and a dense decode_32k step at DECODE_ROWS rows.  Returns (record,
+    `Count`) by kind."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    out = {}
+    for kind, shape, rows in (("train", "train_4k", 1),
+                              ("decode", "decode_32k", DECODE_ROWS)):
+        out[kind] = lower_cell("granite_8b", shape, "card1",
+                               accum_steps=1,
+                               batch_override=rows)
+        log(json.dumps({"dryrun_prediction": dryrun_summary(out[kind][0]),
+                        "card": card}))
+    return out
+
+
+def card_count(fn, device, where: str) -> tuple:
+    """``fn()`` on the card under the dry-run's counters (FLOPs and bytes;
+    the peak from the allocator, its statistics reset just before).
+    Returns (fn's result, the `Count`, the peak bytes, the bytes
+    allocated at the start, the host ms)."""
+    import torch
+
+    from repro_torch.analysis.count import count
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, c = count(fn, live=False, device=device.type)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{where}: {c.ops} ops counted on the card in {ms:.1f} ms")
+    return out, c, peak, start, ms
+
+
+def op_diff(a: dict, b: dict) -> dict:
+    """The ops two counts dispatched a different number of times."""
+    return {k: (a.get(k, 0), b.get(k, 0)) for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def held_to_prediction(rec: dict, meta, c, peak: int, start: int,
+                       where: str) -> dict:
+    """The card's count against the record (and ``meta``, its `Count`):
+    FLOPs and bytes equal, the peak within DRYRUN_PEAK_TOL of the
+    predicted."""
+    pred = rec["memory"]["peak_bytes"]
+    row = dict(predicted_flops=rec["cost_analysis"]["flops"],
+               card_flops=float(c.flops),
+               predicted_bytes=rec["cost_analysis"]["bytes accessed"],
+               card_bytes=float(c.bytes), predicted_peak=pred,
+               card_peak=peak, peak_rel_err=(peak - pred) / pred,
+               predicted_arguments=rec["memory"]["argument_size_bytes"],
+               card_allocated_at_start=start,
+               compute_ms=rec["roofline"]["compute_s"] * 1e3,
+               memory_ms=rec["roofline"]["memory_s"] * 1e3,
+               bottleneck=rec["roofline"]["bottleneck"])
+    log(json.dumps({where: row}))
+    if c.by_op != meta.by_op:
+        log(f"{where}: ops apart (meta, card): "
+            f"{op_diff(meta.by_op, c.by_op)}")
+    check(row["card_flops"] == row["predicted_flops"],
+          f"{where}: the card's FLOPs {c.flops} != the dry-run's "
+          f"{row['predicted_flops']}")
+    check(row["card_bytes"] == row["predicted_bytes"],
+          f"{where}: the card's bytes {c.bytes} != the dry-run's "
+          f"{row['predicted_bytes']}")
+    check(abs(row["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
+          f"{where}: the card's peak {peak} is {row['peak_rel_err']:+.4f} "
+          f"of the predicted {pred} (> {DRYRUN_PEAK_TOL})")
+    return row
+
+
+def counted_train_step(model, opt, batch, pred: tuple, granite: dict,
+                       card: str) -> dict:
+    """11.2: one more step of 10.2 (its model, optimizer state and step
+    1's batch) under the dry-run's counters, held to the prediction; the
+    roofline's terms beside 10.2's median step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import step_call
+
+    fn, _ = step_call(get_config("granite_8b"), "train", model, batch, opt)
+    (_, _, met), c, peak, start, ms = card_count(fn, model.device, "11.2")
+    check(math.isfinite(float(met["loss"])), f"11.2: loss {met['loss']}")
+    row = held_to_prediction(*pred, c, peak, start, "11.2")
+    row.update(card=card, step_ms=granite["step_ms"], counted_step_ms=ms,
+               loss=float(met["loss"]),
+               roofline_ms=max(row["compute_ms"], row["memory_ms"]),
+               step_share_of_roofline=max(row["compute_ms"],
+                                          row["memory_ms"])
+               / granite["step_ms"],
+               measured_peak_10_2=granite["peak_bytes"])
+    log(json.dumps({"dryrun_train": row}))
+    del met
+    torch.cuda.empty_cache()
+    return row
+
+
+def materialize(specs, device):
+    """`input_specs`'s meta tensors as zeros of the same shapes on
+    ``device``."""
+    import torch
+
+    if isinstance(specs, dict):
+        return {k: materialize(v, device) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [materialize(v, device) for v in specs]
+    return torch.zeros(specs.shape, dtype=specs.dtype, device=device)
+
+
+def counted_decode_step(model, pred: tuple, card: str) -> dict:
+    """11.3: one dense decode step of 10.2's model at decode_32k's shapes
+    cut to DECODE_ROWS rows (zero caches, every row at the cache's last
+    position), under the dry-run's counters, held to the prediction; its
+    logits finite."""
+    import torch
+
+    from repro_torch.launch.dryrun import step_call
+    from repro_torch.models.registry import SHAPES, input_specs
+
+    cfg = model.cfg
+    seq = SHAPES["decode_32k"][0]
+    _, specs = input_specs(cfg, "decode_32k", DECODE_ROWS)
+    inputs = materialize(specs, model.device)
+    inputs["length"].fill_(seq - 1)
+    fn, _ = step_call(cfg, "decode", model, inputs)
+    (logits, _), c, peak, start, ms = card_count(fn, model.device, "11.3")
+    check(tuple(logits.shape) == (DECODE_ROWS, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"11.3: logits {tuple(logits.shape)} not finite")
+    row = held_to_prediction(*pred, c, peak, start, "11.3")
+    row.update(card=card, rows=DECODE_ROWS, cache_tokens=seq,
+               counted_step_ms=ms,
+               cache_gb=sum(t.numel() * t.element_size()
+                            for layer in inputs["caches"]
+                            for t in layer.values()) / 1e9)
+    log(json.dumps({"dryrun_decode": row}))
+    del logits, inputs, fn
+    return row
+
+
+def smoke_step(cfg, kind: str, device):
+    """(the step's closure, its arguments) of a DRYRUN_SMOKE-size step of
+    ``kind`` on ``device`` (`launch.dryrun.smoke_inputs`)."""
+    from repro_torch.launch.dryrun import smoke_inputs, step_call
+
+    model, inputs, opt = smoke_inputs(cfg, kind, device, *DRYRUN_SMOKE)
+    return step_call(cfg, kind, model, inputs, opt, accum_steps=2)
+
+
+def smoke_counts(device, card: str) -> list:
+    """11.1: at every smoke config (``remat`` on, as the full configs
+    have it; train at accum_steps 2) and step kind, the meta count equals
+    the count of the same step on the card: FLOPs, bytes and ops."""
+    import torch
+
+    from repro_torch.analysis.count import count
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+
+    rows = []
+    for name in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(name), remat=True)
+        for kind in ("train", "prefill", "decode"):
+            meta = count(*smoke_step(cfg, kind, "meta"), device="meta")[1]
+            fn, _ = smoke_step(cfg, kind, device)
+            got = count(fn, live=False, device=torch.device(device).type)[1]
+            torch.cuda.synchronize()
+            row = dict(config=cfg.name, kind=kind, flops=meta.flops,
+                       bytes=meta.bytes, ops=meta.ops,
+                       card=(got.flops, got.bytes, got.ops))
+            check((got.flops, got.bytes, got.ops)
+                  == (meta.flops, meta.bytes, meta.ops),
+                  f"11.1 {name} {kind}: the card counts {row['card']}, the "
+                  f"meta device {(meta.flops, meta.bytes, meta.ops)}; ops "
+                  f"apart: {op_diff(meta.by_op, got.by_op)}")
+            rows.append(row)
+    log(json.dumps({"dryrun_smoke": len(rows), "card": card}))
+    return rows
+
+
+def auto_engine_leg(keys, rng, device, card: str) -> list:
+    """11.4: a search batch of BATCH keys on phase 3's tree under each
+    engine (``deltatree``, and the ``forest`` at AUTO_SHARDS shards on the
+    same keys): the median of AUTO_REPS timed batches after an untimed
+    one, the engines' found columns equal; the faster engine must be
+    ``core.engine.AUTO_TABLE``'s row, and ``make_index(...,
+    engine="auto")`` on the card must resolve to it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import make_index
+    from repro_torch.core.engine import AUTO_TABLE
+
+    q = rng.integers(1, KEY_MAX, BATCH).astype(np.int32)
+    small = keys[:4096]
+    rows = []
+    for backend, kw in (
+            ("deltatree", fig12_config(keys.size)),
+            ("forest", dict(forest_config(keys.size, AUTO_SHARDS),
+                            key_max=KEY_MAX))):
+        ms, found = {}, {}
+        for engine in ("lockstep", "scalar"):
+            ix = make_index(backend, initial=keys, engine=engine,
+                            device=device, **kw)
+            found[engine] = ix.search(q)[0].cpu().numpy()
+            times = [timed(lambda: ix.search(q))[1]
+                     for _ in range(AUTO_REPS)]
+            ms[engine] = statistics.median(times) * 1e3
+            del ix
+            torch.cuda.empty_cache()
+        check((found["lockstep"] == found["scalar"]).all(),
+              f"11.4 {backend}: the engines' searches differ")
+        winner = min(ms, key=ms.get)
+        auto = make_index(backend, initial=small, engine="auto",
+                          device=device, **kw).engine
+        row = dict(backend=backend, batch=BATCH, keys=int(keys.size),
+                   lockstep_ms=ms["lockstep"], scalar_ms=ms["scalar"],
+                   winner=winner, table=AUTO_TABLE.get((backend, "cuda")),
+                   auto=auto, card=card)
+        log(json.dumps({"auto_engine": row}))
+        check(winner == row["table"] == auto,
+              f"11.4 {backend}: {winner} reads faster, the table names "
+              f"{row['table']}, auto resolved to {auto}")
+        rows.append(row)
+    return rows
+
+
+def dryrun_phase(keys, seed: int, device) -> dict:
+    """Phase 11.1 and 11.4 (11.2-11.3 run inside phase 10, on its
+    Granite-8B): the dry-run over DRYRUN_CELLS on the host, each record's
+    peak, FLOPs, bytes and bottleneck printed; the smoke steps' meta
+    counts against the card's; the engine="auto" timings.  No kernel of
+    the repo runs in 11.1-11.3 (their counters stay 0); 11.4's lockstep
+    reads launch the fused walk."""
+    import numpy as np
+
+    from repro_torch.launch.dryrun import run_cell
+
+    card = card_name()
+    t0 = time.perf_counter()
+    reset_counts()
+    sweep = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = run_cell(arch, shape, "card1")
+        check(rec["status"] == "ok", f"11.1 {arch} {shape}: {rec}")
+        sweep.append(dryrun_summary(rec))
+        log(json.dumps({"dryrun": sweep[-1], "card": card}))
+    sweep_s = time.perf_counter() - t0
+    log(f"phase 11.1 sweep of {len(sweep)} cells in {sweep_s:.1f} s")
+    smoke = smoke_counts(device, card)
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"phase 11.1 launched a kernel or a plain version: {counts}")
+    auto = auto_engine_leg(keys, np.random.default_rng(seed + 11), device,
+                           card)
+    elapsed = time.perf_counter() - t0
+    log(f"phase 11 done in {elapsed:.1f} s ({card})")
+    return dict(card=card, sweep=sweep, sweep_s=sweep_s, smoke=smoke,
+                auto=auto, elapsed_s=elapsed)
 
 
 def main() -> int:
@@ -4234,6 +4565,8 @@ def run_phases(seed: int, device):
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
     serve["train"] = train_phase(seed, device)
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    serve["dryrun"] = dryrun_phase(keys, seed, device)
+    log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",

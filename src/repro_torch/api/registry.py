@@ -46,23 +46,25 @@ def make_index(backend: str = "deltatree", *, initial=None, payloads=None,
                device=None, **kwargs) -> Index:
     """Build an Index: ``backend`` picks the registry entry, ``initial``
     (unique keys) and ``payloads`` seed a bulk build (empty when None),
-    ``engine`` selects the read-path SearchEngine ("scalar" / "lockstep"),
+    ``engine`` selects the read-path SearchEngine ("scalar" / "lockstep";
+    ``"auto"`` resolves first to the measured winner for this backend on
+    ``device``'s type, `core.engine.resolve_engine`, and to "scalar" where
+    the table has no row or its winner is one the backend cannot run),
     ``maintenance`` the scheduler policy, ``device`` where the state lives
     (``cuda`` when None; pass ``"cpu"`` to run on the CPU — with no card
     and no device this raises), and the remaining kwargs go to the
     backend's config (e.g. ``height=7`` or a prebuilt ``cfg=...``).
-
-    ``engine="auto"`` raises: the JAX package's table behind it was
-    measured on a TPU and on CPUs, and the port gets its own only from
-    H100 measurements.
     """
     from repro_torch.maintenance import parse_policy
 
     spec = get_backend(backend)
     if engine == "auto":
-        raise NotImplementedError(
-            "engine='auto' has no H100 table yet; pass 'lockstep' or "
-            "'scalar' (see ROADMAP.md)")
+        from repro_torch.core.deltatree import resolve_device
+        from repro_torch.core.engine import resolve_engine
+
+        engine = resolve_engine(engine, backend, resolve_device(device).type)
+        if engine not in supported_engines(backend):
+            engine = "scalar"  # table winner the backend can't run
     if engine is not None:
         engines = supported_engines(backend)
         if engine not in engines:

@@ -29,8 +29,9 @@ per-shard dispatch as the reference.
 
 Reads return a trailing ``ReadStats`` (`repro_torch.obs.stats`) when
 ``cfg.collect_stats`` is set, derived here in the dispatch from the
-engines' own columns.  Not yet ported: ``engine="auto"`` (its table was
-measured on a TPU; the port gets one from H100 rows).
+engines' own columns.  ``engine="auto"`` resolves through `AUTO_TABLE`,
+keyed by (backend, device type) and filled from H100 rows only
+(`resolve_engine`).
 """
 
 from __future__ import annotations
@@ -133,6 +134,37 @@ def get_engine(name: str) -> SearchEngine:
 
 def available_engines() -> list[str]:
     return sorted(_ENGINES)
+
+
+# --------------------------------------------------------------------------
+# "auto" engine resolution — the measured winner per (backend, device type)
+# --------------------------------------------------------------------------
+
+# Which engine reads faster, keyed by (backend, device type).  The JAX
+# package's rows (TPU and compiled-CPU runs) are not carried over; the
+# ``cuda`` rows come from `chip_smoke.py` phase 11.4 on NVIDIA H100 80GB
+# HBM3 (700 W): the median search batch of 1024 keys on phase 3's tree
+# (1,967,510 keys, height 7) under each engine, and on a forest of 8
+# shards of the same keys.  No CPU row: on the CPU "auto" misses and
+# resolves to "scalar", as JAX's interpret-mode row does.
+AUTO_TABLE: dict[tuple[str, str], str] = {
+    ("deltatree", "cuda"): "lockstep",  # 0.752 ms; scalar 233.5 ms
+    ("forest", "cuda"): "lockstep",     # 1.231 ms; scalar 486.5 ms
+}
+
+
+def resolve_engine(name: str | None, backend: str, device_type: str
+                   ) -> str | None:
+    """Resolve ``engine="auto"`` to a registered engine name.
+
+    Names other than "auto" (None included) pass through untouched.
+    "auto" looks up ``AUTO_TABLE[backend, device_type]`` and falls back
+    to "scalar" (the everywhere-correct reference) on a miss; a winner
+    the backend cannot run is `api.make_index`'s to replace by
+    "scalar"."""
+    if name != "auto":
+        return name
+    return AUTO_TABLE.get((backend, device_type), "scalar")
 
 
 # --------------------------------------------------------------------------

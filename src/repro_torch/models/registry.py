@@ -12,16 +12,22 @@ JAX function takes ``params`` these take the model ``init_params`` made:
     module                                  -> transformer or encdec
 
 The audio family runs `encdec`, every other family `transformer`.
-``input_specs`` (the JAX dry-run's shape stand-ins) is not here: its only
-caller, ``launch/dryrun.py``, is not ported.
+
+``input_specs(cfg, shape_name)`` returns meta-device stand-ins for every
+input of the step a shape runs (train step / prefill / decode step), as
+the JAX function returns ``ShapeDtypeStruct``s; the dry-run
+(`launch.dryrun`) counts the step against exactly these.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
+import torch
+
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers.basic import dtype_of
 
 # assignment shape table: name -> (seq_len, global_batch, step kind)
 SHAPES = {
@@ -59,3 +65,65 @@ def api(cfg: ModelConfig) -> SimpleNamespace:
             cfg, batch, max_len, device),
         module=mod,
     )
+
+
+def input_specs(cfg: ModelConfig, shape_name: str,
+                batch_override: int | None = None):
+    """Meta tensors for the step the shape runs, with the JAX function's
+    keys, shapes and dtypes; returns (step_kind, specs).  The caches are
+    the port's own (`init_caches` on the meta device: a list of per-layer
+    dicts, or the encoder-decoder's L-stacked dict), which hold JAX's
+    leaves layer by layer.  Allocates nothing and touches no card."""
+    seq, gbatch, kind = SHAPES[shape_name]
+    b = batch_override or gbatch
+    i32 = torch.int32
+    act = dtype_of(cfg.dtype)
+
+    def S(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "train":
+        if cfg.family == "vlm":
+            st = seq - cfg.vision_tokens
+            specs = {
+                "tokens": S((b, st), i32),
+                "labels": S((b, st), i32),
+                "vision_embeds": S((b, cfg.vision_tokens, cfg.d_model), act),
+            }
+        elif cfg.family == "audio":
+            specs = {
+                "tokens": S((b, seq), i32),
+                "labels": S((b, seq), i32),
+                "frames": S((b, cfg.encoder_seq, cfg.d_model), act),
+            }
+        else:
+            specs = {"tokens": S((b, seq), i32), "labels": S((b, seq), i32)}
+        return "train", specs
+
+    mod = encdec if cfg.family == "audio" else transformer
+    cache_spec = mod.init_caches(cfg, b, seq, "meta")
+
+    if kind == "prefill":
+        if cfg.family == "vlm":
+            specs = {
+                "tokens": S((b, seq - cfg.vision_tokens), i32),
+                "vision_embeds": S((b, cfg.vision_tokens, cfg.d_model), act),
+                "caches": cache_spec,
+            }
+        elif cfg.family == "audio":
+            specs = {
+                "tokens": S((b, seq), i32),
+                "frames": S((b, cfg.encoder_seq, cfg.d_model), act),
+                "caches": cache_spec,
+            }
+        else:
+            specs = {"tokens": S((b, seq), i32), "caches": cache_spec}
+        return "prefill", specs
+
+    # decode: one new token against a seq-long cache
+    specs = {
+        "token": S((b, 1), i32),
+        "length": S((b,), i32),
+        "caches": cache_spec,
+    }
+    return "decode", specs

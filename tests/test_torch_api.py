@@ -124,7 +124,6 @@ def test_relaxed_policies_run(policy):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(engine="auto"), NotImplementedError),
     (dict(maintenance="lazy"), ValueError),
     (dict(engine="nope"), ValueError),
 ])
@@ -132,6 +131,45 @@ def test_unported_options_raise(kw, exc):
     with pytest.raises(exc):
         make_index("deltatree", initial=[1, 2, 3], height=4, max_dnodes=64,
                    device="cpu", **kw)
+
+
+def test_resolve_engine_auto_table():
+    """`resolve_engine` as JAX's (tests/test_fused_walk.py): the table's
+    ``cuda`` rows name lockstep; a miss (the CPU, a backend with no row)
+    gives scalar; other names pass through."""
+    from repro_torch.core.engine import resolve_engine
+
+    assert resolve_engine("auto", "deltatree", "cuda") == "lockstep"
+    assert resolve_engine("auto", "forest", "cuda") == "lockstep"
+    assert resolve_engine("auto", "deltatree", "cpu") == "scalar"
+    assert resolve_engine("auto", "sorted_array", "cuda") == "scalar"
+    assert resolve_engine("lockstep", "deltatree", "cpu") == "lockstep"
+    assert resolve_engine(None, "deltatree", "cuda") is None
+
+
+@pytest.mark.parametrize("backend,kw", [
+    ("deltatree", dict(height=3, max_dnodes=64)),
+    ("forest", dict(num_shards=2, height=3, max_dnodes=64)),
+    ("sorted_array", {}),
+])
+def test_make_index_auto_engine_cpu(backend, kw):
+    """On the CPU ``engine="auto"`` misses the table and resolves to
+    scalar; the index records the resolved name, never the sentinel."""
+    ix = make_index(backend, initial=np.asarray([5, 9, 42], np.int32),
+                    engine="auto", device="cpu", **kw)
+    assert ix.engine == "scalar"
+    found = ix.search(np.asarray([5, 7], np.int32))[0]
+    np.testing.assert_array_equal(found.numpy(), [True, False])
+
+
+def test_make_index_auto_winner_backend_cannot_run(monkeypatch):
+    """A table winner the backend does not support resolves to scalar."""
+    from repro_torch.core import engine as E
+
+    monkeypatch.setitem(E.AUTO_TABLE, ("sorted_array", "cpu"), "lockstep")
+    ix = make_index("sorted_array", initial=np.asarray([5, 9], np.int32),
+                    engine="auto", device="cpu")
+    assert ix.engine == "scalar"
 
 
 def test_scheduler_rejects_non_eager_policy():
