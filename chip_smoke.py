@@ -231,9 +231,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    results equal): the faster must be ``core.engine.AUTO_TABLE``'s
    ``cuda`` row, and ``make_index(..., engine="auto")`` on the card must
    resolve to it.  No kernel runs in 11.1-11.3 (their counters stay 0).
+12. The DeltaForest over ``torch.distributed`` ranks sharing the card:
+   phase 6's S = 8 forest spread over R = 2, then R = 4 processes
+   (``torch.multiprocessing`` spawn, each told ``backend="gloo"``; gloo
+   moves CUDA tensors through the host), each building only its S / R
+   shards and launching kernels 2 and 3 on them.  Every process, and
+   this one alone first as the reference, runs 6.1's read batch (1021
+   keys, 509 sparse and dense scan bands at ``max_out`` 128,
+   ``successor_k(16)``), 3 update batches, ``deferred`` then ``flush``,
+   in set mode and map mode (``payload_bits=12``), each result against
+   the oracle; at R = 4 also a ``ShardedPagerConfig(num_shards=4)``
+   script whose block tables must list the pages ``allocate`` returned.
+   Every rank's results equal this process's bit for bit.  Each rank
+   then times 6.2's batch-1024 stream at 5 % updates (25,000 ops, every
+   step against the oracle).  Every rank launched kernels 2 and 3 and no
+   plain version.  Printed: each rank's search / update medians beside
+   phase 6.2's at S = 8 (labelled one card shared by R processes: not a
+   multi-card number), launches and seconds.
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
-reads apart, each phase 7 run) sets the launch counters to 0 just before
+reads apart, each phase 7 run, each phase 12 leg in each rank) sets the
+launch counters to 0 just before
 it and reads them just after: its kernels must have launched (the paged
 kernel once per layer per decode step), and no plain version may have
 run.
@@ -242,7 +260,8 @@ The second-to-last line is ``{"kernels": [...]}`` (rows 2-4 also carry
 ``forest_launches``: kernel 2's in phase 6.2's fused runs, kernel 3's in
 6.1's fused reads, kernel 4's in 6.4's sharded serve run; rows 2 and 4
 ``phase7_launches``; row 4 ``phase8_launches``, its launches in 8.2's and
-8.3's serve runs); the last is ``{"ok": true, "device": {...}}``.
+8.3's serve runs; rows 2 and 3 ``ranks_launches``, each rank's launches
+in phase 12 by R); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -677,16 +696,32 @@ def card_check() -> tuple[str, str]:
     card = card_name()
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.kernels.build import library
+    from repro_torch.kernels.build import library, resource_usage
 
     sources = [Path(SOURCE).name, Path(SCAN_SOURCE).name,
                Path(PA_SOURCE).name]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    # the ptxas reports (phases 2 and 5.1) compile once more: beside the
+    # builds, not after them
+    with ThreadPoolExecutor(2 * len(sources)) as pool:
+        reports = pool.map(resource_usage, sources)
         list(pool.map(library, sources))
-    log(f"kernels of {', '.join(sources)} built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+        _PTXAS.update(zip(sources, reports))
+    log(f"kernels of {', '.join(sources)} built and loaded, with their "
+        f"ptxas reports, in {time.perf_counter() - t0:.2f} s")
     return card, torch.cuda.get_device_name(0)
+
+
+_PTXAS: dict = {}   # source -> nvcc -Xptxas -v report (card_check)
+
+
+def ptxas_report(source: str) -> str:
+    """``build.resource_usage(source)``, taken once a run."""
+    if source not in _PTXAS:
+        from repro_torch.kernels.build import resource_usage
+
+        _PTXAS[source] = resource_usage(source)
+    return _PTXAS[source]
 
 
 def churned_tree(keys, payload_bits: int, rng, device):
@@ -960,14 +995,12 @@ def compare_kernels(keys, rng, device, flush) -> dict:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import veb_search as VS
-    from repro_torch.kernels.build import resource_usage
-
     rows = {}
     scan = []
     sorted_keys = None
-    walk_usage = ptxas_lines(resource_usage(Path(SOURCE).name),
+    walk_usage = ptxas_lines(ptxas_report(Path(SOURCE).name),
                              ("walk_fused_kernel", "walk_rows_kernel"))
-    usage = ptxas_lines(resource_usage(Path(SCAN_SOURCE).name),
+    usage = ptxas_lines(ptxas_report(Path(SCAN_SOURCE).name),
                         ("scan_fused_kernel",))
     for line in walk_usage + usage:
         log(f"ptxas: {line}")
@@ -1423,14 +1456,13 @@ def compare_paged(rng, device, seed: int) -> dict:
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.build import resource_usage
     from repro_torch.kernels.delta_paged_attention import (
         paged_decode_attention,
         split_plan,
     )
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    usage = resource_usage(Path(PA_SOURCE).name)
+    usage = ptxas_report(Path(PA_SOURCE).name)
     for line in ptxas_lines(usage):
         log(f"ptxas: {line}")
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -2121,17 +2153,18 @@ def forest_config(n_keys: int, shards: int) -> dict:
                                        / 2 ** (height - 1))))
 
 
-def forest_traffic(seed: int, batch: int, initial) -> dict:
+def forest_traffic(seed: int, batch: int, initial,
+                   ops: int = FOREST_TOTAL_OPS) -> dict:
     """benchmarks/common.py::run_index's stream for one batch size (its rng
-    seeded with ``seed``; 2 warm-up steps, then total_ops // batch), with
-    the set oracle's answers: each step's search on the pre-step set, then
-    its update rows in batch order."""
+    seeded with ``seed``; 2 warm-up steps, then ops // batch), with the set
+    oracle's answers: each step's search on the pre-step set, then its
+    update rows in batch order."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     live = set(initial.tolist())
     steps = []
-    for _ in range(FOREST_WARMUP + max(FOREST_TOTAL_OPS // batch, 1)):
+    for _ in range(FOREST_WARMUP + max(ops // batch, 1)):
         kinds = mixed_kinds(rng, batch, FOREST_UPDATE_PCT)
         keys = rng.integers(1, FOREST_KEY_MAX, size=batch).astype(np.int32)
         found = np.fromiter((k in live for k in keys.tolist()), bool, batch)
@@ -2203,33 +2236,81 @@ def forest_reads_agree(ixf, ixd, live, pays, q, rng, where: str) -> dict:
     successor_k.  The fused reads run alone between a counter reset and a
     read, then the dense reads the same way; returns the fused reads'
     counts (walk and scan launched, no plain version)."""
-    import numpy as np
-
-    from repro_torch.core.layout import KEY_MAX as DOMAIN_MAX
-
-    bits = ixf.cfg.tree.payload_bits
-    bands = [scan_bands(rng, live.size, FOREST_SCAN_K, density, 128,
-                        FOREST_KEY_MAX) for density in DENSITY_FILL]
-    names = ("search", "successor",
-             *(f"{d} scan" for d in DENSITY_FILL), "successor_k")
-
-    def reads(ix):
-        return [ix.lookup(q) if bits else ix.search(q), ix.successor(q),
-                *(ix.spec.backend.scan(ix.cfg, ix.state, st, hi, 128)
-                  for st, hi in bands),
-                ix.successor_k(q[:FOREST_SCAN_K], 16)]
-
+    bands = forest_bands(rng, live)
     reset_counts()
-    got = reads(ixf)
+    got = forest_read_batch(ixf, q, bands)
     counts = read_counts()
     check(counts["fused"] > 0 and counts["scan"] > 0
           and counts["plain"] == 0, f"{where}: fused reads' launches {counts}")
     reset_counts()
-    dense = reads(ixd)
+    dense = forest_read_batch(ixd, q, bands)
     dcounts = read_counts()
     check(dcounts["plain"] == 0, f"{where}: dense reads ran a plain version")
-    for name, a, b in zip(names, got, dense):
+    for name, a, b in zip(FOREST_READS, got, dense):
         same_cols(a, b, f"{where}: {name}")
+    oracle_reads(got, live, pays, q, bands, ixf.cfg.tree.payload_bits, where)
+    return counts
+
+
+FOREST_READS = ("search", "successor", *(f"{d} scan" for d in DENSITY_FILL),
+                "successor_k")
+
+
+def forest_bands(rng, live) -> list:
+    """6.1's scan bands: ``FOREST_SCAN_K`` sparse, then dense, bands."""
+    return [scan_bands(rng, live.size, FOREST_SCAN_K, density, 128,
+                       FOREST_KEY_MAX) for density in DENSITY_FILL]
+
+
+def forest_read_batch(ix, q, bands) -> list:
+    """6.1's reads of one batch, in ``FOREST_READS`` order: lookup (map
+    mode) or search, successor, the bands' scans at ``max_out`` 128 and
+    ``successor_k(16)`` of the first ``FOREST_SCAN_K`` keys."""
+    return [ix.lookup(q) if ix.cfg.tree.payload_bits else ix.search(q),
+            ix.successor(q),
+            *(ix.spec.backend.scan(ix.cfg, ix.state, st, hi, 128)
+              for st, hi in bands),
+            ix.successor_k(q[:FOREST_SCAN_K], 16)]
+
+
+def forest_query_batch(rng, ix, live):
+    """6.1's read keys: ``FOREST_CHECK_K`` of them, the shard boundaries
+    (`boundary_keys`) first, then half drawn from the live keys, the rest
+    uniform over the domain and above it."""
+    import numpy as np
+
+    q = rng.integers(0, FOREST_KEY_MAX + 1000,
+                     FOREST_CHECK_K).astype(np.int32)
+    b = boundary_keys(ix, live)
+    q[:b.size] = b
+    q[b.size: b.size + FOREST_CHECK_K // 2] = rng.choice(
+        live, FOREST_CHECK_K // 2)
+    return q
+
+
+def oracle_update(oracle: dict, kinds, keys, pays, bits: int):
+    """Apply an update batch to the dict oracle in batch order; returns
+    the expected per-row results."""
+    import numpy as np
+
+    want = np.zeros(keys.size, bool)
+    for i in np.flatnonzero(kinds):
+        k = int(keys[i])
+        want[i] = (k not in oracle) if kinds[i] == 1 else (k in oracle)
+        if kinds[i] == 1 and want[i]:
+            oracle[k] = int(pays[i]) if bits else 0
+        elif kinds[i] == 2:
+            oracle.pop(k, None)
+    return want
+
+
+def oracle_reads(got, live, pays, q, bands, bits: int, where: str) -> None:
+    """6.1's read results (`forest_reads_agree`'s order) against the
+    sorted live keys and their payloads."""
+    import numpy as np
+
+    from repro_torch.core.layout import KEY_MAX as DOMAIN_MAX
+
     found = got[0]
     idx = np.searchsorted(live, q)
     hit = (idx < live.size) & (live[np.minimum(idx, live.size - 1)] == q)
@@ -2249,7 +2330,6 @@ def forest_reads_agree(ixf, ixd, live, pays, q, rng, where: str) -> dict:
         check_scan(res, live, st, hi, 128, f"{where}, {density} scan")
     check_scan(got[-1], live, q[:FOREST_SCAN_K],
                np.full(FOREST_SCAN_K, DOMAIN_MAX), 16, f"{where}, succ_k")
-    return counts
 
 
 def forest_exact(ix0, rng, where: str) -> dict:
@@ -2275,13 +2355,7 @@ def forest_exact(ix0, rng, where: str) -> dict:
     oracle = dict(items)
 
     def batch():
-        q = rng.integers(0, FOREST_KEY_MAX + 1000,
-                         FOREST_CHECK_K).astype(np.int32)
-        b = boundary_keys(ixf, live)
-        q[:b.size] = b
-        q[b.size: b.size + FOREST_CHECK_K // 2] = rng.choice(
-            live, FOREST_CHECK_K // 2)
-        return q
+        return forest_query_batch(rng, ixf, live)
 
     def no_plain(what: str) -> None:
         c = read_counts()
@@ -2294,14 +2368,7 @@ def forest_exact(ix0, rng, where: str) -> dict:
         keys = rng.integers(1, FOREST_KEY_MAX, FOREST_CHECK_K).astype(np.int32)
         keys[:64] = rng.choice(live, 64)
         pp = (keys % 4096).astype(np.int32)
-        want = np.zeros(keys.size, bool)
-        for i in np.flatnonzero(kinds):
-            k = int(keys[i])
-            want[i] = (k not in oracle) if kinds[i] == 1 else (k in oracle)
-            if kinds[i] == 1 and want[i]:
-                oracle[k] = int(pp[i]) if bits else 0
-            elif kinds[i] == 2:
-                oracle.pop(k, None)
+        want = oracle_update(oracle, kinds, keys, pp, bits)
         reset_counts()
         ixf, res, st = ixf.update(OpBatch.mixed(kinds, keys, pp))
         ixd, resd, std = ixd.update(OpBatch.mixed(kinds, keys, pp))
@@ -4480,6 +4547,290 @@ def dryrun_phase(keys, seed: int, device) -> dict:
                 auto=auto, elapsed_s=elapsed)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the DeltaForest over torch.distributed ranks sharing the card
+# --------------------------------------------------------------------------
+
+RANKS = (2, 4)                  # gloo ranks sharing the one card
+RANKS_SHARDS = 8                # phase 6's S = 8 forest
+RANKS_PAGER = 4                 # the ranks the pager leg runs on
+RANKS_PAGER_STEPS = 24          # pager script steps
+RANKS_TIMEOUT = 600             # seconds one spawn may take
+RANKS_TIMED_OPS = 25_000        # a rank's timed batch-1024 stream (6.2: 100,000)
+RANKS_LABEL = ("one card shared by {r} processes, gloo: not a multi-card "
+               "number")
+
+
+def ranks_exact(ix0, rng, pre: str, rec: dict) -> dict:
+    """Phase 12 on one forest, as every rank and the single process run
+    it: 6.1's read batch (`forest_read_batch`) on the built forest, after
+    each of ``FOREST_CHECK_STEPS`` update batches (50 % updates) and under
+    ``deferred`` after clustered inserts, then ``flush``; each result
+    against the oracle and recorded under ``pre``.  Returns the legs'
+    launch counts (walk and scan launched, no plain version)."""
+    import numpy as np
+
+    from repro_torch.api import OpBatch
+    from repro_torch.distributed import router as R
+
+    bits = ix0.cfg.tree.payload_bits
+    ix = copy_index(ix0)
+    oracle = dict(ix0.live_items())
+
+    def live_pays():
+        live = np.asarray(sorted(oracle), np.int64)
+        return live, np.asarray([oracle[k] for k in live.tolist()], np.int64)
+
+    def reads(ix, tag):
+        live, pays = live_pays()
+        q = forest_query_batch(rng, ix, live)
+        bands = forest_bands(rng, live)
+        got = forest_read_batch(ix, q, bands)
+        oracle_reads(got, live, pays, q, bands, bits, f"{pre}, {tag}")
+        for name, cols in zip(FOREST_READS, got):
+            for i, col in enumerate(cols):
+                rec[f"{pre}/{tag}/{name}/{i}"] = col.cpu().numpy()
+
+    reset_counts()
+    reads(ix, "built")
+    for step in range(FOREST_CHECK_STEPS):
+        live, _ = live_pays()
+        kinds = mixed_kinds(rng, FOREST_CHECK_K, 50)
+        keys = rng.integers(1, FOREST_KEY_MAX, FOREST_CHECK_K).astype(np.int32)
+        keys[:64] = rng.choice(live, 64)
+        pp = (keys % 4096).astype(np.int32)
+        want = oracle_update(oracle, kinds, keys, pp, bits)
+        ix, res, st = ix.update(OpBatch.mixed(kinds, keys, pp))
+        check((res.cpu().numpy() == want).all(),
+              f"{pre}: update results differ from the oracle at {step}")
+        rec[f"{pre}/{step}/res"] = res.cpu().numpy()
+        rec[f"{pre}/{step}/stats"] = np.asarray(list(st))
+        reads(ix, f"step {step}")
+    live, _ = live_pays()
+    qf = copy_index(ix, maintenance="deferred")
+    runs = (rng.choice(live, FOREST_CHECK_K // 8)[:, None]
+            + np.arange(1, 9)).reshape(-1).astype(np.int32)
+    ones = np.ones(runs.size, np.int32)
+    pr = (runs % 4096).astype(np.int32)
+    want = oracle_update(oracle, ones, runs, pr, bits)
+    qf, res, st = qf.update(OpBatch.mixed(ones, runs, pr))
+    check((res.cpu().numpy() == want).all(), f"{pre}: deferred inserts")
+    buffered = int((R.gather_shards(ix0.cfg.num_shards,
+                                    qf.state.trees.bcount.sum(1)) > 0).sum())
+    check(st.pending > 0 and buffered >= 2,
+          f"{pre}: the deferred batch left {st.pending} items buffered in "
+          f"{buffered} shards")
+    rec[f"{pre}/deferred/stats"] = np.asarray(list(st))
+    reads(qf, "deferred")
+    qf, fst = qf.flush()
+    check(fst.pending == 0 and qf.live_items() == sorted(oracle.items())
+          and not qf.alloc_failed(), f"{pre}: deferred flush")
+    rec[f"{pre}/flush/stats"] = np.asarray(list(fst))
+    rec[f"{pre}/size"] = np.asarray(qf.size())
+    counts = read_counts()
+    check(counts["fused"] > 0 and counts["scan"] > 0 and counts["plain"] == 0,
+          f"{pre}: launches {counts}")
+    return counts
+
+
+def ranks_pager(seed: int, device, rec: dict) -> dict:
+    """A ``ShardedPagerConfig(num_shards=4)`` pager (lockstep) through a
+    seeded script: each step allocates blocks for 8 sequences, every third
+    frees two, then reads every live sequence's block table, which must
+    list the pages ``allocate`` returned (-1 past them); the tables are
+    recorded.  Returns the script's launch counts."""
+    import numpy as np
+
+    from repro_torch.serving import ShardedDeltaPager, ShardedPagerConfig
+
+    pg = ShardedDeltaPager(ShardedPagerConfig(num_shards=SHARDED_SHARDS,
+                                              engine="lockstep"),
+                           device=device)
+    rng = np.random.default_rng(seed + 120)
+    pages: dict = {}
+    reset_counts()
+    for step in range(RANKS_PAGER_STEPS):
+        for sid in rng.choice(64, 8, replace=False).tolist():
+            pages.setdefault(sid, []).extend(
+                pg.allocate(sid, int(rng.integers(1, 9))))
+        if step % 3 == 2:
+            for sid in rng.choice(sorted(pages), 2, replace=False).tolist():
+                pg.free_seq(sid)
+                del pages[sid]
+        sids = sorted(pages)
+        width = max(len(v) for v in pages.values())
+        bt = pg.block_tables(sids, width).cpu().numpy()
+        want = np.full((len(sids), width), -1, bt.dtype)
+        for row, sid in enumerate(sids):
+            want[row, :len(pages[sid])] = pages[sid]
+        check((bt == want).all(), f"pager step {step}: block tables")
+        rec[f"pager/{step}"] = bt
+    counts = read_counts()
+    check(counts["fused"] > 0 and counts["plain"] == 0,
+          f"pager: launches {counts}")
+    return counts
+
+
+def ranks_legs(seed: int, device, pager: bool) -> dict:
+    """Everything phase 12 runs, by every rank and, as the reference, by
+    the single process: phase 6's keys (``forest_config(n, 8)``) in set
+    and map mode (``payload_bits=12``) through `ranks_exact`, with
+    ``pager`` `ranks_pager`, and in a rank (a process group is up) 6.2's
+    batch-1024 stream over ``RANKS_TIMED_OPS`` through `forest_run`,
+    timed.  Returns the record (numpy arrays; the ``timed/`` keys,
+    ``launches`` and ``seconds`` are this process's own)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.api import make_index
+
+    t0 = time.perf_counter()
+    keys = np.unique(np.random.default_rng(seed + 6).integers(
+        1, FOREST_KEY_MAX, FOREST_INITIAL).astype(np.int32))
+    rng = np.random.default_rng(seed + 12)
+    rec: dict = {}
+    fused = scan = 0
+    for bits in (0, 12):
+        ix = make_index("forest", initial=keys,
+                        payloads=keys % 4096 if bits else None,
+                        engine="lockstep", device=device, payload_bits=bits,
+                        **forest_config(keys.size, RANKS_SHARDS))
+        c = ranks_exact(ix, rng, "map" if bits else "set", rec)
+        fused, scan = fused + c["fused"], scan + c["scan"]
+        if not bits and dist.is_initialized():
+            row = forest_run(copy_index(ix), forest_traffic(
+                seed, BATCH, keys, RANKS_TIMED_OPS), "phase 12 timed")
+            check(row["walk_launches_per_search"] == 1,
+                  f"phase 12: {row['walk_launches_per_search']} walk "
+                  "launches a search batch")
+            fused += row["counts"]["fused"]
+            for k in ("search_ms", "update_ms", "ops_per_s"):
+                rec[f"timed/{k}"] = np.asarray(row[k])
+        del ix
+    if pager:
+        fused += ranks_pager(seed, device, rec)["fused"]
+    rec["launches"] = np.asarray([fused, scan])
+    rec["seconds"] = np.asarray(time.perf_counter() - t0)
+    return rec
+
+
+def ranks_child(rank: int, world: int, out_dir: str, seed: int,
+                device: str) -> None:
+    """One rank of phase 12: joins a gloo group of ``world`` processes
+    sharing ``device``, runs `ranks_legs` and saves its record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import start_process_group
+
+    torch.set_num_threads(1)
+    start_process_group("gloo", rank=rank, world_size=world,
+                        init_method=f"file://{out_dir}/store")
+    try:
+        rec = ranks_legs(seed, torch.device(device), world == RANKS_PAGER)
+        np.savez(f"{out_dir}/rank{rank}.npz", **rec)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, seed: int, device) -> list:
+    """`ranks_child` on ``world`` processes (spawned: each starts its own
+    CUDA context on the card); returns each rank's record.  A rank that
+    raises, or a run past ``RANKS_TIMEOUT``, fails the phase (every rank
+    is stopped)."""
+    import shutil
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    out = ROOT / "build" / f"chip_ranks_{world}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.start_processes(ranks_child,
+                             args=(world, str(out), seed, str(device)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANKS_TIMEOUT
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f"phase 12: {world} ranks ran past {RANKS_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(5)
+    recs = []
+    for r in range(world):
+        with np.load(out / f"rank{r}.npz") as z:
+            recs.append({k: z[k] for k in z.files})
+    shutil.rmtree(out, ignore_errors=True)
+    return recs
+
+
+def ranks_phase(seed: int, device, forest: dict) -> dict:
+    """Phase 12: the S = 8 forest at phase 6's size spread over R = 2 and
+    R = 4 gloo processes sharing the card (each building its own S / R
+    shards and launching kernels 2 and 3 on them), against the same legs
+    in this process: every rank's reads, update results and stats,
+    flushes and sizes equal the single process's bit for bit (and the
+    oracle, in every process); the sharded pager's block tables at R = 4
+    likewise.  Each rank's launch counts (kernels 2 and 3 above 0, no
+    plain version) and batch-1024 search / update medians, beside phase
+    6.2's at S = 8."""
+    import torch
+
+    card = card_name()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    single = ranks_legs(seed, device, pager=True)
+    grid = next(p for p in forest["grid"]
+                if p["shards"] == RANKS_SHARDS and p["batch"] == BATCH)
+    log(f"phase 12 single process done at {time.perf_counter() - t0:.1f} s")
+    own = ("timed/", "launches", "seconds")
+    rows = []
+    for world in RANKS:
+        ts = time.perf_counter()
+        recs = spawn_ranks(world, seed, device)
+        spawn_s = time.perf_counter() - ts
+        for r, rec in enumerate(recs):
+            want = {k for k in single if not k.startswith(own)
+                    and (world == RANKS_PAGER or not k.startswith("pager/"))}
+            got = {k for k in rec if not k.startswith(own)}
+            check(got == want, f"phase 12, R={world}, rank {r}: recorded "
+                               f"{sorted(got ^ want)[:5]} apart")
+            for k in want:
+                a, b = rec[k], single[k]
+                check(a.dtype == b.dtype and a.shape == b.shape
+                      and (a == b).all(),
+                      f"phase 12, R={world}, rank {r}: {k} differs from "
+                      "the single process")
+            check(rec["launches"][0] > 0 and rec["launches"][1] > 0,
+                  f"phase 12, R={world}, rank {r}: launches "
+                  f"{rec['launches'].tolist()}")
+        row = dict(card=card, ranks=world, shards=RANKS_SHARDS,
+                   backend="gloo", label=RANKS_LABEL.format(r=world),
+                   batch=BATCH,
+                   search_ms=[float(x["timed/search_ms"]) for x in recs],
+                   update_ms=[float(x["timed/update_ms"]) for x in recs],
+                   ops_per_s=[float(x["timed/ops_per_s"]) for x in recs],
+                   phase6_search_ms=grid["fused"]["search_ms"],
+                   phase6_update_ms=grid["fused"]["update_ms"],
+                   walk_launches=[int(x["launches"][0]) for x in recs],
+                   scan_launches=[int(x["launches"][1]) for x in recs],
+                   rank_seconds=[float(x["seconds"]) for x in recs],
+                   spawn_s=spawn_s, pager=world == RANKS_PAGER)
+        log(json.dumps({"forest_ranks": row}))
+        rows.append(row)
+    elapsed = time.perf_counter() - t0
+    log(f"phase 12 done in {elapsed:.1f} s ({card})")
+    return dict(card=card, rows=rows, single_seconds=float(single["seconds"]),
+                launches={str(r["ranks"]): dict(fused=r["walk_launches"],
+                                                scan=r["scan_launches"])
+                          for r in rows},
+                elapsed_s=elapsed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4511,10 +4862,11 @@ def main() -> int:
 
 
 def run_phases(seed: int, device):
-    """Phases 2-10 on ``device``; returns (the rows of the kernels line,
+    """Phases 2-12 on ``device``; returns (the rows of the kernels line,
     the serve phase's results, the forest phase's under ``"forest"``,
     phase 7's under ``"comparison"``, phase 8's under ``"zoo"``, phase 9's
-    under ``"model_only"`` and phase 10's under ``"train"``)."""
+    under ``"model_only"``, phase 10's under ``"train"``, phase 11's under
+    ``"dryrun"`` and phase 12's under ``"ranks"``)."""
     import numpy as np
     import torch
 
@@ -4567,6 +4919,8 @@ def run_phases(seed: int, device):
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     serve["dryrun"] = dryrun_phase(keys, seed, device)
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    serve["ranks"] = ranks = ranks_phase(seed, device, forest)
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",
@@ -4582,7 +4936,9 @@ def run_phases(seed: int, device):
     for name in ("fused", "rows", "scan"):
         r = kern[name]
         extra = ({} if name == "rows" else
-                 {"forest_launches": forest_launches[name]})
+                 {"forest_launches": forest_launches[name],
+                  "ranks_launches": {r: c[name] for r, c in
+                                     ranks["launches"].items()}})
         if name == "fused":
             extra["phase7_launches"] = comp["launches"]
         out.append({"name": names[name], "route": "cuda",

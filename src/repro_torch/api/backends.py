@@ -3,9 +3,10 @@ forest, sorted_array, and the paper's comparison structures pointer_bst and
 static_veb.
 
 ``deltatree`` is the paper's structure, one arena on one device;
-``forest`` the key-range-sharded DeltaForest with every shard on that
-device.  The baselines (`core.baselines`) keep their state on the device
-too.  Backends whose update only understands insert/delete rows
+``forest`` the key-range-sharded DeltaForest, its shards spread over the
+ranks of the default ``torch.distributed`` process group (all on one
+device without one).  The baselines (`core.baselines`) keep their state
+on the device too.  Backends whose update only understands insert/delete rows
 (``sorted_array``, ``pointer_bst``, ``static_veb``) neutralize search rows
 with ``OpBatch.mask_searches`` (a delete of key 0, which is never stored).
 """
@@ -26,6 +27,7 @@ from repro_torch.core import layout
 from repro_torch.core import transfers as TR
 from repro_torch.core.deltatree import TreeConfig
 from repro_torch.distributed import forest as F
+from repro_torch.distributed import router as R
 from repro_torch.distributed.forest import ForestConfig
 from repro_torch.maintenance.policy import KINDS
 
@@ -154,7 +156,8 @@ def _forest_successor_k(cfg, f, keys, k):
 
 def _forest_size(cfg, f) -> int:
     t = f.trees
-    return int(torch.where(t.alive, t.nlive + t.bcount, 0).sum())
+    local = torch.where(t.alive, t.nlive + t.bcount, 0).sum(1)
+    return int(R.gather_shards(cfg.num_shards, local).sum())
 
 
 register_backend(BackendSpec(
@@ -163,7 +166,8 @@ register_backend(BackendSpec(
     capability=lambda cfg: Capability(
         map_mode=cfg.tree.payload_bits > 0, successor=True, sharded=True,
         deferred_maintenance=True, fused_forest=_forest_fused(cfg),
-        range_scan=True, successor_k=True),
+        range_scan=True, successor_k=True,
+        ranks=R.span(cfg.num_shards).ranks),
     search=F.search_batch,
     lookup=F.lookup_batch,
     update=_forest_update,

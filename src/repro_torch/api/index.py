@@ -48,6 +48,7 @@ class Capability:
     fused_forest: bool = False  # sharded reads share one fused frontier
     range_scan: bool = False  # ordered range pages (range_scan + cursors)
     successor_k: bool = False  # bulk k-successor reads (successor_k)
+    ranks: int = 1            # torch.distributed ranks the state spans
 
 
 class CapabilityError(NotImplementedError):

@@ -11,6 +11,12 @@ DESIGN.md §4).
 Accessing a deprecated name still works (it resolves to
 ``repro_torch.distributed.forest``) but emits ``DeprecationWarning``.
 Code in this package imports ``repro_torch.distributed.forest`` directly.
+
+Over several ``torch.distributed`` ranks (start the group with
+`repro_torch.launch.mesh.start_process_group`), the shards spread over
+R of the ranks (`router.span`; `router.forest_mesh` is the "shards"
+mesh over them): every rank calls the
+same entry points and gets the same results.
 """
 
 import warnings

@@ -29,11 +29,18 @@ non-empty shard's minimum.  The per-shard minima come from the same
 dispatch (one extra successor probe per shard) and are combined with a
 suffix minimum.
 
+The shards spread over the ranks of the default ``torch.distributed``
+process group as the JAX forest's spread over its "shards" device mesh
+(`router.span`: R ranks): each rank holds the stacked arenas of its own
+S / R shards (``trees``) on its ``device``, while ``splits``, the per-shard
+counters and ``epoch`` are replicated; every entry point is called by
+every rank with the same arguments and returns the same result on each.
+With no process group every shard is on this process.
+
 What differs from the JAX package:
 
-- All shards live on one device (``device``: ``cuda`` unless the caller
-  names the CPU).  The JAX forest spreads them over a device mesh; here
-  the dense dispatch is a loop over the shards.
+- Shards on one rank run one after another (the JAX forest vmaps reads
+  over a device's shards).
 - Updates write the arenas **in place**, as the single-tree port does.
   `update_batch` hands each shard's maintenance a tree of views of the
   stacked tensors (`shard_tree`), so every write lands in the forest.  The
@@ -51,6 +58,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import deltatree as DT
 from repro_torch.core import engine as E
@@ -86,8 +94,9 @@ class ForestConfig:
 
 
 class Forest(NamedTuple):
-    """Stacked arenas: every DeltaTree tensor gains a leading (S,) axis;
-    ``splits`` is the (S-1,) int32 boundary tensor the router searchsorts.
+    """Stacked arenas: every DeltaTree tensor gains a leading axis over
+    this rank's S / R shards (all S on one rank); ``splits`` is the (S-1,)
+    int32 boundary tensor the router searchsorts.
 
     ``reads`` / ``updates`` are cumulative per-shard (S,) int32 op counters
     (`shard_load`).  Updates count inside `update_batch`; reads count only
@@ -109,9 +118,9 @@ def _stack(trees: list[DeltaTree]) -> DeltaTree:
 
 
 def shard_tree(forest: Forest, s: int) -> DeltaTree:
-    """Shard ``s``'s arena as a DeltaTree of views of the stacked tensors
-    (`deltatree.shard_of`): reads see the forest, in-place writes change
-    it."""
+    """This rank's shard ``s`` (global shard ``router.span(S).lo + s``) as
+    a DeltaTree of views of the stacked tensors (`deltatree.shard_of`):
+    reads see the forest, in-place writes change it."""
     return DT.shard_of(forest.trees, s)
 
 
@@ -140,9 +149,11 @@ def _new(fcfg: ForestConfig, shards: list[DeltaTree], splits,
 
 
 def empty(fcfg: ForestConfig, splits=None, device=None) -> Forest:
-    """An empty forest on ``device`` (``cuda`` when None)."""
+    """An empty forest on ``device`` (``cuda`` when None); this rank's
+    shards only."""
     dev = DT.resolve_device(device)
-    shards = [DT.empty(fcfg.tree, "cpu") for _ in range(fcfg.num_shards)]
+    shards = [DT.empty(fcfg.tree, "cpu")
+              for _ in range(R.span(fcfg.num_shards).local)]
     return _new(fcfg, shards, splits, dev)
 
 
@@ -150,7 +161,8 @@ def bulk_build(fcfg: ForestConfig, values: np.ndarray,
                payloads: np.ndarray | None = None, splits=None,
                device=None) -> Forest:
     """Build a forest from unique keys on the host, then move it to
-    ``device`` (``cuda`` when None).
+    ``device`` (``cuda`` when None).  Every rank splits the same keys the
+    same way and builds its own shards only.
 
     With no explicit ``splits`` the boundaries are equi-depth over
     ``values``: every shard starts with |values|/S keys whatever the key
@@ -166,8 +178,9 @@ def bulk_build(fcfg: ForestConfig, values: np.ndarray,
                                      fcfg.key_min, fcfg.key_max)
     splits = np.asarray(splits, np.int64)
     sid = SP.shard_of_np(splits, values)
+    sp = R.span(fcfg.num_shards)
     shards = []
-    for s in range(fcfg.num_shards):
+    for s in range(sp.lo, sp.lo + sp.local):
         mask = sid == s
         shards.append(DT.bulk_build(
             fcfg.tree, values[mask],
@@ -287,9 +300,10 @@ def _forest_read_stats(fcfg: ForestConfig, f: Forest, raw, keys, sid,
     from repro_torch.obs.stats import ReadStats, RouterStats, SearchStats
 
     pad = keys == _PAD_KEY
-    member = torch.stack([DT.buffered_member(fcfg.tree, shard_tree(f, s),
-                                             keys)
-                          for s in range(fcfg.num_shards)])
+    sp = R.span(fcfg.num_shards)
+    member = R.gather_shards(fcfg.num_shards, torch.stack([
+        DT.buffered_member(fcfg.tree, shard_tree(f, j), keys)
+        for j in range(sp.local)]))
     # each lane's buffered membership in its owner shard
     lanes = torch.arange(keys.shape[0], device=keys.device)
     bhit = found & member[sid.long(), lanes]
@@ -299,10 +313,18 @@ def _forest_read_stats(fcfg: ForestConfig, f: Forest, raw, keys, sid,
         from repro_torch.obs import transfers as OTR
 
         # shard-local replay from (stacked arenas, owner sid, keys): both
-        # dispatches hand it the same sid, so their transfer stats agree
-        transfers = OTR.measure_stacked(
+        # dispatches hand it the same sid, so their transfer stats agree.
+        # A rank replays the lanes its shards own (the others as sentinel
+        # lanes, which touch nothing); the per-lane columns sum over ranks
+        own = (sid >= sp.lo) & (sid < sp.lo + sp.local)
+        lsid = torch.where(own, sid - sp.lo, 0)
+        cols = OTR.transfer_cols(
             fcfg.tree, f.trees.value, f.trees.child,
-            f.trees.root[sid.long()], sid, keys)
+            f.trees.root[lsid.long()], lsid, torch.where(own, keys, _PAD_KEY))
+        if sp.ranks > 1:
+            cols = [c.sum(0, dtype=c.dtype) for c in R.gather_ranks(
+                tuple(c[None] for c in cols), sp.ranks)]
+        transfers = OTR.TransferStats.of(pad, *cols)
     return ReadStats(
         search=SearchStats.of(hops, pad, bhit),
         router=RouterStats.of(R.lane_counts(sid, fcfg.num_shards), clamped),
@@ -499,9 +521,10 @@ def update_batch(fcfg: ForestConfig, f: Forest, kinds, keys, payloads=None):
     dkinds = R.scatter_dense(r, s, kinds, OP_SEARCH)   # pads are no-ops
     dkeys = R.scatter_dense(r, s, keys, 0)
     dpays = R.scatter_dense(r, s, payloads, 0)
-    _, dres, stats = R.dispatch(
+    # the trees are written in place: only results and stats come back
+    dres, stats = R.dispatch(
         s, lambda t, kn, ks, ps: DT.update_batch_impl(fcfg.tree, t, kn, ks,
-                                                      ps),
+                                                      ps)[1:],
         f.trees, dkinds, dkeys, dpays)
     # per-shard cumulative update counters: non-search rows after the
     # domain mask (a clamped-out row never reaches a shard)
@@ -515,8 +538,8 @@ def flush(fcfg: ForestConfig, f: Forest, budget: int = 64):
     """Drain pending maintenance on every shard (restores I5 forest-wide
     after ``deferred`` / ``budgeted`` batches).  Returns (forest, stats);
     in place, like `update_batch`."""
-    _, stats = R.dispatch(fcfg.num_shards,
-                          lambda t: DT.flush_impl(fcfg.tree, t, budget),
+    (stats,) = R.dispatch(fcfg.num_shards,
+                          lambda t: DT.flush_impl(fcfg.tree, t, budget)[1:],
                           f.trees)
     return f._replace(epoch=f.epoch + 1), MaintenanceStats.reduce(stats)
 
@@ -547,11 +570,16 @@ def shard_load(f: Forest) -> dict:
 
 def live_items(fcfg: ForestConfig, f: Forest):
     """All live (key, payload) pairs, key-sorted (shard order is key
-    order)."""
+    order), gathered from every rank."""
+    sp = R.span(fcfg.num_shards)
     out = []
-    for s in range(fcfg.num_shards):
-        out.extend(DT.live_items(fcfg.tree, shard_tree(f, s)))
-    return out
+    for j in range(sp.local):
+        out.extend(DT.live_items(fcfg.tree, shard_tree(f, j)))
+    if sp.ranks == 1:
+        return out
+    parts = [None] * R.world()[1]
+    dist.all_gather_object(parts, out)
+    return [item for part in parts[:sp.ranks] for item in part]
 
 
 def live_keys(fcfg: ForestConfig, f: Forest) -> np.ndarray:
@@ -559,5 +587,6 @@ def live_keys(fcfg: ForestConfig, f: Forest) -> np.ndarray:
 
 
 def alloc_failed(f: Forest) -> bool:
-    """True if any shard's arena ever ran out (sticky, like the tree)."""
-    return bool(f.trees.alloc_fail.any())
+    """True if any shard's arena ever ran out (sticky, like the tree), on
+    any rank."""
+    return bool(R.gather_shards(f.reads.shape[0], f.trees.alloc_fail).any())

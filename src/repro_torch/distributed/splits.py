@@ -16,14 +16,17 @@ The partition is chosen on the host with numpy (this module is the port's
 own copy of the JAX one, which is numpy too), then kept in the forest as a
 small (S-1,) int32 tensor that the router searchsorts against.
 ``rebalance`` re-derives boundaries from the *live* key set and rebuilds
-the forest when growth has skewed the shards.
+the forest when growth has skewed the shards; over several ranks every
+rank derives the same boundaries and builds its own shards.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import layout
+from repro_torch.distributed import router as R
 
 
 def equiwidth_splits(num_shards: int, key_min: int = layout.KEY_MIN,
@@ -80,11 +83,12 @@ def shard_of_np(splits: np.ndarray, keys: np.ndarray) -> np.ndarray:
 
 
 def shard_counts(fcfg, forest) -> np.ndarray:
-    """Live keys per shard (host-side).  Buffers are empty post-step
-    (invariant I5), so per-arena ``nlive`` over alive ΔNodes is exact."""
-    nlive = forest.trees.nlive.cpu().numpy()
-    alive = forest.trees.alive.cpu().numpy()
-    return (nlive * alive).sum(axis=1).astype(np.int64)
+    """Live keys per shard over every rank (host-side).  Buffers are empty
+    post-step (invariant I5), so per-arena ``nlive`` over alive ΔNodes is
+    exact."""
+    t = forest.trees
+    local = torch.where(t.alive, t.nlive, 0).sum(1, dtype=torch.int64)
+    return R.gather_shards(fcfg.num_shards, local).cpu().numpy()
 
 
 def needs_rebalance(fcfg, forest, *, skew: float = 2.0) -> bool:
@@ -105,10 +109,11 @@ def rebalance(fcfg, forest):
     """Re-partition the forest equi-depth over its *live* keys and rebuild
     it on the same device.
 
-    Slow path by design (a host-side gather and a bulk build): maintenance
-    stays shard-local; this is the forest-level analogue of a Rebalance
-    sweep, run rarely when ``needs_rebalance`` trips.  Returns a new
-    Forest; the old one is left as it was.
+    Slow path by design (a host-side gather of the live items from every
+    rank, then a bulk build in which each rank builds its own shards):
+    maintenance stays shard-local; this is the forest-level analogue of a
+    Rebalance sweep, run rarely when ``needs_rebalance`` trips.  Returns a
+    new Forest; the old one is left as it was.
     """
     from repro_torch.distributed import forest as F
 

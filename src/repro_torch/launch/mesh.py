@@ -11,16 +11,27 @@ no sparsity, at the card's full power limit):
   both ways together, so 450 GB/s each way (``ICI_BW``: what one card
   sends to the others).
 
-`card(name)` returns the row; an unknown card raises.  The JAX module's
-meshes (``make_production_mesh``, ``make_host_mesh``,
-``make_forest_mesh``) are not ported: the port runs on one card until the
-multi-card slice (ROADMAP Queue 1 item 3), which brings them with
-``torch.distributed``.
+`card(name)` returns the row; an unknown card raises.
+
+The meshes are ``torch.distributed`` device meshes over the ranks of the
+default process group, under the JAX module's axis names:
+`make_forest_mesh` (the DeltaForest's 1-D "shards" mesh) and
+`make_host_mesh` (a ("data", "model") mesh).  Without a process group
+each gives a size-1 mesh.  The forest itself needs only the mesh's size,
+`forest_ranks`, which is arithmetic and makes no group.
+`start_process_group` starts the group with the backend its caller names;
+nothing here picks one.  ``make_production_mesh`` and the pod meshes are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,8 +54,6 @@ def card(name: str | None = None) -> Card:
     (``torch.cuda.get_device_name(0)``).  Raises when the card has no row,
     or when there is no card and no name."""
     if name is None:
-        import torch
-
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is present: name the card's row (one of "
@@ -55,3 +64,82 @@ def card(name: str | None = None) -> Card:
     except KeyError:
         raise KeyError(f"no constants for the card {name!r}; known: "
                        f"{sorted(CARDS)}") from None
+
+
+# --------------------------------------------------------------------------
+# process group and meshes
+# --------------------------------------------------------------------------
+
+
+def world() -> tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def start_process_group(backend: str, *, rank: int, world_size: int,
+                        init_method: str,
+                        local_rank: int | None = None) -> None:
+    """Start the default process group with ``backend``, which the caller
+    names: ``"nccl"`` when every rank has a card of its own, ``"gloo"``
+    otherwise (CPU ranks, or several ranks sharing one card; gloo moves
+    CUDA tensors through the host).  Under nccl a rank takes the card of
+    its rank on its host: ``local_rank``, else ``LOCAL_RANK`` from the
+    environment (as ``torchrun`` sets it), else ``rank`` (one host).
+    ``init_method`` is the rendezvous, e.g. ``"file:///tmp/store"`` or
+    ``"tcp://localhost:29500"``."""
+    if backend == "nccl":
+        if local_rank is None:
+            local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        cards = torch.cuda.device_count()
+        if local_rank >= cards:
+            raise ValueError(
+                f"nccl needs a card for each rank of a host: local rank "
+                f"{local_rank} of {world_size} ranks, and this host has "
+                f"{cards}: name backend='gloo' to share cards")
+        torch.cuda.set_device(local_rank)
+    elif backend != "gloo":
+        raise ValueError(f"backend must be 'nccl' or 'gloo', not {backend!r}")
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
+
+
+def _mesh(shape: tuple, names: tuple) -> DeviceMesh:
+    """A device mesh of ``shape`` over ranks 0..prod(shape)-1 of the
+    default group; a size-1 mesh needs no group (and makes none)."""
+    n = 1
+    for d in shape:
+        n *= d
+    ranks = torch.arange(n).reshape(shape)
+    if n == 1:
+        return DeviceMesh("cpu", ranks, mesh_dim_names=names,
+                          _init_backend=False, _rank=0)
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device, ranks, mesh_dim_names=names)
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
+    """A ("data", "model") mesh over the first data * model ranks."""
+    _, w = world()
+    if data * model > w:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} "
+                         f"ranks; the process group has {w}")
+    return _mesh((data, model), ("data", "model"))
+
+
+def forest_ranks(num_shards: int, world_size: int) -> int:
+    """R, the ranks the DeltaForest's ``num_shards`` shards spread over:
+    the largest divisor of ``num_shards`` that fits ``world_size``, so the
+    shards always split evenly (S / R a rank)."""
+    return max(d for d in range(1, min(world_size, num_shards) + 1)
+               if num_shards % d == 0)
+
+
+def make_forest_mesh(num_shards: int) -> DeviceMesh:
+    """1-D "shards" mesh of `forest_ranks` ranks for the DeltaForest
+    (`repro_torch.distributed`); ranks past the mesh hold a replica of mesh
+    position rank mod R.  Without a process group (or with one rank) this
+    is a size-1 mesh: every shard on this process, as in unit tests."""
+    return _mesh((forest_ranks(num_shards, world()[1]),), ("shards",))

@@ -104,17 +104,25 @@ def _distinct_blocks(sorted_idx: torch.Tensor, block: int) -> torch.Tensor:
     return torch.sum(valid & first, dim=1, dtype=torch.int32)
 
 
-def measure_stacked(cfg, value, child, roots, sid, keys) -> TransferStats:
-    """``TransferStats`` for one read batch over stacked (S, M, ...)
-    arenas (the forest's owner-shard view; S = 1 for a single arena)."""
+def transfer_cols(cfg, value, child, roots, sid, keys) -> tuple:
+    """The per-query columns of `measure_stacked`: (visits[K], router[K],
+    leaf[K], blocks[K, len(TRANSFER_BLOCK_SIZES)]), all zero on sentinel
+    lanes."""
     idx, visits, router_t, leaf_t = _replay(cfg, value, child, roots, sid,
                                             keys)
     sidx = torch.sort(idx, dim=1).values
     blocks = torch.stack([_distinct_blocks(sidx, b)
                           for b in TRANSFER_BLOCK_SIZES], dim=1)
+    return visits, router_t, leaf_t, blocks
+
+
+def measure_stacked(cfg, value, child, roots, sid, keys) -> TransferStats:
+    """``TransferStats`` for one read batch over stacked (S, M, ...)
+    arenas (the forest's owner-shard view; S = 1 for a single arena)."""
     pad = torch.as_tensor(keys, dtype=torch.int32,
                           device=value.device) == _SENTINEL
-    return TransferStats.of(pad, visits, router_t, leaf_t, blocks)
+    return TransferStats.of(pad, *transfer_cols(cfg, value, child, roots,
+                                                sid, keys))
 
 
 def measure(cfg, t, keys) -> TransferStats:

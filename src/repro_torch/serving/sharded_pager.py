@@ -15,7 +15,11 @@ instead:
 Each shard owns one contiguous key band — exactly the forest's equi-width
 partition over [1, S*band] — while consecutive seq ids land on different
 shards, so per-shard load stays balanced for any window of active
-sequences.  All shards live on the pager's one device.
+sequences.  Under a ``torch.distributed`` process group the forest's
+shards spread over the ranks: every rank makes the same pager and the
+same calls, holds its own shards' arenas, and reads the same block tables
+(the free list and the sequences' blocks are host state, replicated).
+Without one, all shards live on the pager's one device.
 """
 
 from __future__ import annotations

@@ -358,6 +358,9 @@ def forest_trace(seed: int, steps: int, key_hi: int, *, n_init: int = 200,
 
 SCAN_COLS = ("out", "n", "hops", "more")
 FOREST_MAX_ITEMS, FOREST_SUCC_K = 7, 5
+# the forest parity traces' key range and steps (test_torch_fused_forest.py
+# and test_torch_forest_ranks.py share their JAX legs)
+FOREST_KEY_HI, FOREST_STEPS = 1000, 4
 
 
 def forest_cfgs(num_shards: int, policy: str, payload_bits: int,
@@ -419,6 +422,45 @@ def jax_forest_leg(num_shards: int, policy: str, payload_bits: int, *,
         rec[f"{i}/stats"] = np.asarray(list(stats.asdict().values()))
         forest_record(rec, f"{i}/forest", f)
     return rec
+
+
+def forest_seed(num_shards: int, payload_bits: int) -> int:
+    """The seed of the forest parity trace at S shards (set or map mode)."""
+    return (41 if payload_bits else 31) + num_shards
+
+
+_MAP_JAX = r'''
+import sys
+sys.path.insert(0, TESTS)
+from _torch_parity import FOREST_KEY_HI, FOREST_STEPS, forest_seed, jax_forest_leg
+rec = {}
+for policy in ("eager", "deferred"):
+    leg = jax_forest_leg(S, policy, 8, seed=forest_seed(S, 8),
+                         steps=FOREST_STEPS, key_hi=FOREST_KEY_HI)
+    rec.update({f"{policy}/{k}": v for k, v in leg.items()})
+'''
+
+
+def jax_forest_shared(tmp_path_factory, num_shards: int, policy: str,
+                      payload_bits: int) -> dict:
+    """`jax_forest_leg` of the trace at ``forest_seed``, once per test run
+    for every xdist worker (`shared_npz`): set mode in this process, map
+    mode (8 payload bits) with x64 in one subprocess for both policies."""
+    from pathlib import Path
+
+    if payload_bits:
+        tests = str(Path(__file__).resolve().parent)
+        rec = jax_npz(tmp_path_factory, f"torch_forest_map_{num_shards}",
+                      f"TESTS = {tests!r}\nS = {num_shards}\n" + _MAP_JAX)
+        return prefixed(rec, policy)
+
+    def make(path):
+        np.savez(path, **jax_forest_leg(
+            num_shards, policy, 0, seed=forest_seed(num_shards, 0),
+            steps=FOREST_STEPS, key_hi=FOREST_KEY_HI))
+
+    return shared_npz(tmp_path_factory,
+                      f"torch_forest_set_{num_shards}_{policy}", make)
 
 
 # ----------------------------------------------------------- sharded pager ---

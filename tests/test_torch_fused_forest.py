@@ -10,15 +10,16 @@ successor, range scan and ``successor_k`` rows — equals JAX's and the
 oracle's at every step, and after every update batch the results, the
 ``MaintenanceStats`` and every shard's arena equal JAX's bit for bit.
 Read batches are 61 keys and scan batches 13 bands (S x 13 tiled lanes):
-no multiple of 4 or 64.  Map mode runs the JAX side with x64 in a
-subprocess (`_torch_parity.jax_npz`), one per shard count.
+no multiple of 4 or 64.  The JAX legs run once per test run
+(`_torch_parity.jax_forest_shared`, shared with
+``test_torch_forest_ranks.py``); map mode runs the JAX side with x64 in a
+subprocess, one per shard count.
 
-``test_fused_shard_map_8_devices`` (8 fake devices) has no counterpart:
-the port keeps every shard on one card.
+``test_fused_shard_map_8_devices`` (8 fake devices) has its counterpart
+over 8 gloo ranks in ``test_torch_forest_ranks.py``.
 """
 
 import dataclasses
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,14 +28,11 @@ from repro_torch.core.oracle import MapOracle, SetOracle
 from repro_torch.distributed import forest as TF
 
 from _torch_parity import (
-    FOREST_MAX_ITEMS, FOREST_SUCC_K, SCAN_COLS, assert_cols_equal,
-    assert_forests_equal, check_invariants, forest_cfgs, forest_trace,
-    jax_forest_leg, jax_npz, np_of, prefixed,
+    FOREST_KEY_HI as KEY_HI, FOREST_MAX_ITEMS, FOREST_STEPS as STEPS,
+    FOREST_SUCC_K, SCAN_COLS, assert_cols_equal, assert_forests_equal,
+    check_invariants, forest_cfgs, forest_seed, forest_trace,
+    jax_forest_shared, np_of, prefixed,
 )
-
-KEY_HI = 1000
-STEPS = 4
-TESTS = str(Path(__file__).resolve().parent)
 
 
 def _oracle_scan(live, starts, his, max_out):
@@ -141,26 +139,13 @@ def _check_buffered(policy, num_shards, most_buffered):
 
 @pytest.mark.parametrize("policy", ["eager", "deferred"])
 @pytest.mark.parametrize("num_shards", [1, 4, 8])
-def test_fused_matches_dense_dispatch(num_shards, policy):
+def test_fused_matches_dense_dispatch(tmp_path_factory, num_shards, policy):
     """Set mode: fused = dense (lockstep and scalar) = JAX fused = oracle
     for every read, arenas = JAX's after every batch."""
-    seed = 31 + num_shards
-    rec = jax_forest_leg(num_shards, policy, 0, seed=seed, steps=STEPS,
-                         key_hi=KEY_HI)
+    rec = jax_forest_shared(tmp_path_factory, num_shards, policy, 0)
     _check_buffered(policy, num_shards,
-                    _port_leg(rec, num_shards, policy, 0, seed))
-
-
-_MAP_JAX = r'''
-import sys
-sys.path.insert(0, TESTS)
-from _torch_parity import jax_forest_leg
-rec = {}
-for policy in ("eager", "deferred"):
-    leg = jax_forest_leg(S, policy, 8, seed=41 + S, steps=STEPS,
-                         key_hi=KEY_HI)
-    rec.update({f"{policy}/{k}": v for k, v in leg.items()})
-'''
+                    _port_leg(rec, num_shards, policy, 0,
+                              forest_seed(num_shards, 0)))
 
 
 @pytest.mark.parametrize("policy", ["eager", "deferred"])
@@ -168,13 +153,10 @@ for policy in ("eager", "deferred"):
 def test_fused_map_mode_x64(tmp_path_factory, num_shards, policy):
     """Map mode (int64 packed values, 8 payload bits): the same checks,
     payloads included, against the JAX forest run with x64."""
-    head = (f"TESTS = {TESTS!r}\nS = {num_shards}\nSTEPS = {STEPS}\n"
-            f"KEY_HI = {KEY_HI}\n")
-    rec = jax_npz(tmp_path_factory, f"torch_fused_forest_map_{num_shards}",
-                  head + _MAP_JAX)
+    rec = jax_forest_shared(tmp_path_factory, num_shards, policy, 8)
     _check_buffered(policy, num_shards,
-                    _port_leg(prefixed(rec, policy), num_shards, policy, 8,
-                              41 + num_shards))
+                    _port_leg(rec, num_shards, policy, 8,
+                              forest_seed(num_shards, 8)))
 
 
 def test_fused_capability_and_dispatch_selection():
