@@ -248,6 +248,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain version.  Printed: each rank's search / update medians beside
    phase 6.2's at S = 8 (labelled one card shared by R processes: not a
    multi-card number), launches and seconds.
+13. The sharded trainer (``repro_torch.parallel``) over R = 4 gloo
+   processes sharing the card (``tp_phase``).  This process first runs
+   the oracle: Granite-8B at full width cut to 2 of 36 layers, float32
+   parameters, moments and activations (``remat`` on), 3 steps of
+   ``AdamWConfig(lr=1e-3, state_dtype="float32")`` on 2 x 4096 tokens
+   of ``batch_at_step``; its parameters and first moments after step 1
+   go to ``build/chip_tp``.  13.1: the ranks draw the same weights, keep the
+   blocks ``param_specs`` gives on a (data, model) = (2, 2) mesh and take
+   the same 3 steps (one row a data rank, under ``logical_rules``):
+   every loss within 1e-4 of the oracle's, every leaf after step 1
+   within 5e-3 of its block of the oracle's (tests/test_parallel.py's
+   bounds), every gradient norm within 1e-4 of the oracle's relative to
+   it, each rank's block of every first moment after step 1 (the
+   clipped gradient times 1 - b1) within 1e-3 of that leaf's largest
+   in the oracle (step 1's update is lr / 100 a parameter, too small
+   for the leaf bound to tell a wrong gradient), each rank's parameter
+   and moment bytes under 0.3 of the oracle's, no collective of
+   DTensor's own (only ``parallel.comm``'s, counted by kind a step).  13.2: ``split_k_decode_attention`` over
+   "model" on a 1 x 4 mesh at decode_32k's heads (B 8, H 32, KVH 8, D
+   128, S 32,768, float32, random lengths) within 1e-5 of
+   ``decode_attention`` here.  13.3: ``compressed_pmean`` over the 4
+   ranks of each rank's block of the step-1 gradient of
+   ``layers.0.mixer.wq`` (its first moment over 1 - b1): bit for bit
+   the per-rank quantize-then-mean computed here, within the int8
+   grid's bound of the exact mean.  13.4: the state after 13.1 saved
+   on (2, 2) (rank 0 writes), restored onto (2, 1) by ranks 0-1 and
+   whole here: every block of every parameter and moment on both
+   meshes bit for bit (position-weighted digests of the bits).  Printed
+   beside the card: losses, grad norms, step medians (host clock,
+   synchronized) of the oracle and each rank, bytes, collectives,
+   split-K and save / restore seconds.  No kernel runs (every process's
+   counters stay 0).
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
 reads apart, each phase 7 run, each phase 12 leg in each rank) sets the
@@ -275,6 +307,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4831,6 +4864,518 @@ def ranks_phase(seed: int, device, forest: dict) -> dict:
                 elapsed_s=elapsed)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the sharded trainer over torch.distributed ranks sharing the card
+# --------------------------------------------------------------------------
+
+TP_MESH = (2, 2)                # ("data", "model") of 13.1
+TP_RANKS = TP_MESH[0] * TP_MESH[1]
+TP_LAYERS = 2                   # Granite-8B's 36 layers cut to 2
+TP_ROWS, TP_SEQ = 2, 4096       # one row of 4096 tokens a data rank
+TP_STEPS = 3
+TP_OPT = dict(lr=1e-3, state_dtype="float32")   # tests/test_parallel.py's
+TP_LOSS_TOL, TP_LEAF_TOL = 1e-4, 5e-3           # and its bounds
+TP_GNORM_RTOL = 1e-4            # of the oracle's gradient norm
+TP_GRAD_RTOL = 1e-3             # of a leaf's largest first moment
+SPLITK_MESH = (1, TP_RANKS)     # 13.2-13.3: "model" over the 4 ranks
+SPLITK_SHAPE = dict(B=8, H=32, KVH=8, D=128, S=32768)  # decode_32k's heads
+SPLITK_TOL = 1e-5
+SPLITK_REPS = 5
+TP_PMEAN_LEAF = "layers.0.mixer.wq"
+TP_RESTORE_MESH = (2, 1)        # 13.4: onto ranks 0-1
+TP_TIMEOUT = 600
+
+
+def collective_mode():
+    """A dispatch mode that counts the collective ops run under it by name
+    (``c10d.*`` are `parallel.comm`'s, ``_c10d_functional.*`` would be
+    DTensor's own).  CommDebugMode does the same but its module tracker
+    fails under activation checkpointing's recompute."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ns = func.namespace
+            if ns in ("c10d", "_c10d_functional", "c10d_functional"):
+                self.counts[f"{ns}.{func.__name__}"] += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def tp_config():
+    """Granite-8B at full width, 2 of its 36 layers, float32 parameters
+    and activations (so the sharded step's equality means something)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("granite_8b"), num_layers=TP_LAYERS,
+                               dtype="float32", param_dtype="float32")
+
+
+def tp_batches(cfg, seed: int) -> list:
+    from repro_torch.data import DataConfig, batch_at_step, to_device
+
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TP_SEQ,
+                      global_batch=TP_ROWS, seed=seed)
+    return [to_device(batch_at_step(dcfg, k), "cpu") for k in range(TP_STEPS)]
+
+
+def digest(t) -> list:
+    """Two position-weighted sums of a tensor's bit patterns, in int64
+    (wrapping, so exact in any order): equal tensors give equal pairs,
+    and a changed or moved element changes them."""
+    import torch
+
+    t = t.detach().contiguous().view(-1)
+    bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                   1: torch.int8}[t.element_size()])
+    out = [0, 0]
+    step = 1 << 25
+    for lo in range(0, bits.numel(), step):
+        b = bits[lo:lo + step].to(torch.int64)
+        i = torch.arange(lo, lo + b.numel(), device=b.device,
+                         dtype=torch.int64)
+        out[0] += int((b * (i * 2654435761 + 1)).sum())
+        out[1] += int((b * ((i ^ (i >> 3)) * 2246822519 + 7)).sum())
+    return [x % (1 << 64) for x in out]
+
+
+def tp_state_digests(named: dict, opt: dict) -> dict:
+    """Digests of this rank's blocks of the parameters and moments."""
+    from repro_torch.parallel.shardings import local
+
+    out = {}
+    for k in named:
+        out[f"p/{k}"] = digest(local(named[k]))
+        out[f"m/{k}"] = digest(local(opt["m"][k]))
+        out[f"v/{k}"] = digest(local(opt["v"][k]))
+    return out
+
+
+def tp_child(rank: int, world: int, out_dir: str, seed: int,
+             device: str) -> None:
+    """One rank of phase 13: joins a gloo group of ``world`` processes
+    sharing ``device``, runs `tp_legs` and saves its record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import start_process_group
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    start_process_group("gloo", rank=rank, world_size=world,
+                        init_method=f"file://{out_dir}/store")
+    try:
+        rec = tp_legs(seed, torch.device(device), Path(out_dir))
+        np.savez(f"{out_dir}/rank{rank}.npz", **rec)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_legs(seed: int, device, out_dir: Path) -> dict:
+    """Everything a rank of phase 13 runs (see `tp_phase`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import AdamWConfig, adamw_init, compressed_pmean
+    from repro_torch.parallel import comm as C
+    from repro_torch.parallel import shardings as SH
+    from repro_torch.parallel.ax import block_index, logical_rules
+    from repro_torch.parallel.decode_attn import split_k_decode_attention
+    from repro_torch.train import make_train_step
+
+    t_start = time.perf_counter()
+    rank = dist.get_rank()
+    reset_counts()
+    rec: dict = {}
+    cfg, ocfg = tp_config(), AdamWConfig(**TP_OPT)
+    mesh = make_host_mesh(*TP_MESH, device=device)
+    coord = mesh.get_coordinate()
+    model = Transformer(cfg, device=device, seed=seed)
+    pspecs = SH.param_specs(model)
+    psh = SH.to_named(pspecs, mesh)
+    osh = SH.to_named(SH.opt_specs(pspecs), mesh)
+    SH.shard_params(model, psh)
+    torch.cuda.empty_cache()
+    named = dict(model.named_parameters())
+    opt = adamw_init(ocfg, named)
+    rec["bytes_local"] = np.asarray(SH.local_bytes(named)
+                                    + SH.local_bytes(opt["m"])
+                                    + SH.local_bytes(opt["v"]))
+    step = make_train_step(cfg, ocfg)
+    ms, comm = [], {}
+    for k, batch in enumerate(tp_batches(cfg, seed)):
+        batch = SH.shard_batch(batch, mesh, device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        C.COUNTS.clear()
+        t0 = time.perf_counter()
+        cm = collective_mode()
+        with logical_rules(mesh), cm:
+            model, opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if k == 1:
+            comm = dict(ops=dict(cm.counts), kinds=dict(C.COUNTS))
+        for key in ("loss", "grad_norm", "lr"):
+            rec[f"{key}/{k}"] = np.asarray(float(met[key]))
+        if k == 0:
+            ref = out_dir / "ref_step1"
+            m_max = json.loads((ref / "m_max.json").read_text())
+            errs, grad = [], []
+            for name, p in named.items():
+                for kind, t in (("p", p), ("m", opt["m"][name])):
+                    full = np.load(ref / f"{kind}.{name}.npy", mmap_mode="r")
+                    want = full[block_index(full.shape, TP_MESH,
+                                            psh[name].placements, coord)]
+                    want = torch.from_numpy(np.array(want)).to(device)
+                    err = float((SH.local(t).detach() - want).abs().max())
+                    if kind == "p":
+                        errs.append(err)
+                    else:
+                        grad.append(err / m_max[name])
+            rec["leaf_err"] = np.asarray(errs)
+            rec["grad_rel_err"] = np.asarray(grad)
+            # 13.3's input: the step-1 gradient (after clipping) this
+            # rank's first moment holds: m_1 = (1 - b1) g
+            g_in = (SH.local(opt["m"][TP_PMEAN_LEAF]) / (1 - ocfg.b1)).clone()
+    rec["step_ms"] = np.asarray(ms)
+    rec["comm"] = np.asarray(json.dumps(comm))
+    rec["t_train"] = np.asarray(time.perf_counter() - t_start)
+
+    # 13.2 split-K decode attention over "model" = the 4 ranks
+    mesh_b = make_host_mesh(*SPLITK_MESH, device=device)
+    q, kc, vc, lens = splitk_inputs(seed, device)
+    split_k_decode_attention(mesh_b, q, kc, vc, lens)        # untimed
+    sk_ms = []
+    for _ in range(SPLITK_REPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = split_k_decode_attention(mesh_b, q, kc, vc, lens)
+        torch.cuda.synchronize()
+        sk_ms.append((time.perf_counter() - t0) * 1e3)
+    rec["splitk_out"] = out.cpu().numpy()
+    rec["splitk_ms"] = np.asarray(sk_ms)
+    del q, kc, vc, lens
+    # 13.3 compressed_pmean over the same 4 ranks
+    got = compressed_pmean({"g": g_in}, mesh_b, "model")["g"]
+    rec["pmean_in"] = g_in.cpu().numpy()
+    rec["pmean_out"] = got.cpu().numpy()
+    del g_in, got
+
+    # 13.4 the state after 13.1's steps, saved on (2, 2), restored on (2, 1)
+    rec["t_before_save"] = np.asarray(time.perf_counter() - t_start)
+    dig = tp_state_digests(named, opt)
+    for key, d in dig.items():
+        rec[f"dig22/{key}"] = np.asarray(d, dtype=np.uint64)
+    ck = CheckpointManager(out_dir / "ckpt", async_save=False)
+    t0 = time.perf_counter()
+    ck.save(TP_STEPS, (named, opt))
+    rec["save_s"] = np.asarray(time.perf_counter() - t0)
+    rec["save_gather_s"] = np.asarray(ck.last_save["gather_s"])
+    rec["save_write_s"] = np.asarray(ck.last_save["write_s"])
+    mesh_c = make_host_mesh(*TP_RESTORE_MESH, device=device)
+    if mesh_c.get_coordinate() is not None:
+        t0 = time.perf_counter()
+        skel = (named, opt)
+        _, (rp, ro), _ = ck.restore(None, skel, shardings=(
+            SH.to_named(pspecs, mesh_c),
+            SH.to_named(SH.opt_specs(pspecs), mesh_c)))
+        rec["restore_s"] = np.asarray(time.perf_counter() - t0)
+        for key, d in tp_state_digests(rp, ro).items():
+            rec[f"dig21/{key}"] = np.asarray(d, dtype=np.uint64)
+        rec["restored_step"] = np.asarray(int(ro["step"]))
+        del rp, ro
+    dist.barrier()
+    counts = read_counts()
+    rec["counts"] = np.asarray([counts[k] for k in sorted(counts)])
+    rec["seconds"] = np.asarray(time.perf_counter() - t_start)
+    return rec
+
+
+def splitk_inputs(seed: int, device):
+    """13.2's q (B,1,H,D), caches (B,S,KVH,D) and lengths, float32, drawn
+    on the card from ``seed`` (every process draws the same)."""
+    import torch
+
+    sh = SPLITK_SHAPE
+    g = torch.Generator(device=device).manual_seed(seed + 13)
+    b, h, kvh, d, s = sh["B"], sh["H"], sh["KVH"], sh["D"], sh["S"]
+    q = torch.randn(b, 1, h, d, generator=g, device=device)
+    kc = torch.randn(b, s, kvh, d, generator=g, device=device)
+    vc = torch.randn(b, s, kvh, d, generator=g, device=device)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=device)
+    return q, kc, vc, lens
+
+
+def tp_spawn(seed: int, device, out_dir: Path) -> list:
+    """`tp_child` on TP_RANKS processes; each rank's record."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(tp_child,
+                             args=(TP_RANKS, str(out_dir), seed, str(device)),
+                             nprocs=TP_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f"phase 13: {TP_RANKS} ranks ran past {TP_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(5)
+    recs = []
+    for r in range(TP_RANKS):
+        with np.load(out_dir / f"rank{r}.npz") as z:
+            recs.append({k: z[k] for k in z.files})
+    return recs
+
+
+def tp_reference(cfg, ocfg, seed: int, device, out_dir: Path) -> dict:
+    """13.1's oracle: the same model, optimizer and batches in this one
+    process on the card; its parameters and first moments after step 1
+    go to ``out_dir/ref_step1`` (and each moment's largest |value|) for
+    the ranks to compare their blocks with."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import to_device
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.shardings import local_bytes
+    from repro_torch.train import make_train_step
+
+    model = Transformer(cfg, device=device, seed=seed)
+    named = dict(model.named_parameters())
+    opt = adamw_init(ocfg, named)
+    nbytes = (local_bytes(named) + local_bytes(opt["m"])
+              + local_bytes(opt["v"]))
+    step = make_train_step(cfg, ocfg)
+    out = dict(loss=[], grad_norm=[], step_ms=[], bytes=nbytes,
+               params=model.param_count())
+    for k, batch in enumerate(tp_batches(cfg, seed)):
+        batch = to_device(batch, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(met["loss"]))
+        out["grad_norm"].append(float(met["grad_norm"]))
+        if k == 0:
+            ref = out_dir / "ref_step1"
+            ref.mkdir(parents=True)
+            m_max = {}
+            for name, p in named.items():
+                np.save(ref / f"p.{name}.npy", p.detach().cpu().numpy())
+                np.save(ref / f"m.{name}.npy", opt["m"][name].cpu().numpy())
+                m_max[name] = float(opt["m"][name].abs().max())
+            (ref / "m_max.json").write_text(json.dumps(m_max))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, opt, named
+    release()
+    return out
+
+
+def tp_phase(seed: int, device) -> dict:
+    """Phase 13 (see the module's docstring); returns its row."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.layers.attention import decode_attention
+    from repro_torch.models.registry import model_class
+    from repro_torch.optim import AdamWConfig, quantize_int8
+    from repro_torch.parallel import shardings as SH
+    from repro_torch.parallel.ax import block_index, placements_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    t0 = time.perf_counter()
+    reset_counts()
+    out_dir = ROOT / "build" / "chip_tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cfg, ocfg = tp_config(), AdamWConfig(**TP_OPT)
+    torch.cuda.reset_peak_memory_stats()
+    ref = tp_reference(cfg, ocfg, seed, device, out_dir)
+    t_ref = time.perf_counter() - t0
+    log(f"phase 13 single process done at {t_ref:.1f} s")
+    ts = time.perf_counter()
+    recs = tp_spawn(seed, device, out_dir)
+    spawn_s = time.perf_counter() - ts
+    log(f"phase 13 ranks done at {time.perf_counter() - t0:.1f} s")
+
+    # 13.1
+    loss_err = max(abs(float(r[f"loss/{k}"]) - ref["loss"][k])
+                   for r in recs for k in range(TP_STEPS))
+    leaf_err = max(float(r["leaf_err"].max()) for r in recs)
+    gnorm_err = max(abs(float(r[f"grad_norm/{k}"]) - ref["grad_norm"][k])
+                    / ref["grad_norm"][k]
+                    for r in recs for k in range(TP_STEPS))
+    grad_err = max(float(r["grad_rel_err"].max()) for r in recs)
+    check(loss_err < TP_LOSS_TOL, f"13.1: the sharded loss is {loss_err} "
+          f"from the single process's (>= {TP_LOSS_TOL})")
+    check(leaf_err < TP_LEAF_TOL, f"13.1: a leaf after step 1 is {leaf_err} "
+          f"from the single process's (>= {TP_LEAF_TOL})")
+    check(gnorm_err < TP_GNORM_RTOL, f"13.1: a sharded gradient norm is "
+          f"{gnorm_err} of the single process's from it "
+          f"(>= {TP_GNORM_RTOL})")
+    check(grad_err < TP_GRAD_RTOL, f"13.1: a first moment after step 1 is "
+          f"{grad_err} of its largest from the single process's "
+          f"(>= {TP_GRAD_RTOL})")
+    comm = [json.loads(str(r["comm"])) for r in recs]
+    check(not any("functional" in k for c in comm for k in c["ops"]),
+          f"13.1: DTensor ran a collective of its own: {comm[0]}")
+    check(all(sum(c["ops"].values()) == sum(c["kinds"].values())
+              for c in comm), f"13.1: collectives counted apart: {comm[0]}")
+    for r, rec in enumerate(recs):
+        check(not rec["counts"].any(),
+              f"phase 13, rank {r}: a kernel or plain version launched")
+    share = [int(r["bytes_local"]) / ref["bytes"] for r in recs]
+    check(max(share) < 0.3, f"13.1: a rank stores {max(share)} of the "
+          "single process's parameter and moment bytes")
+    train = dict(
+        config=cfg.name, layers=TP_LAYERS, params=ref["params"],
+        mesh=list(TP_MESH), rows=TP_ROWS, tokens=TP_SEQ, steps=TP_STEPS,
+        remat=cfg.remat, dtype="float32", loss_tol=TP_LOSS_TOL,
+        leaf_tol=TP_LEAF_TOL, loss_err=loss_err, leaf_err=leaf_err,
+        grad_norm_rtol=TP_GNORM_RTOL, grad_norm_rel_err=gnorm_err,
+        grad_rtol=TP_GRAD_RTOL, grad_rel_err=grad_err,
+        loss=ref["loss"], grad_norm=ref["grad_norm"],
+        sharded_loss=[float(recs[0][f"loss/{k}"]) for k in range(TP_STEPS)],
+        sharded_grad_norm=[float(recs[0][f"grad_norm/{k}"])
+                           for k in range(TP_STEPS)],
+        single_bytes=ref["bytes"],
+        rank_bytes=[int(r["bytes_local"]) for r in recs],
+        rank_bytes_share=share,
+        single_step_ms=ref["step_ms"],
+        single_step_median_ms=statistics.median(ref["step_ms"]),
+        rank_step_ms=[r["step_ms"].tolist() for r in recs],
+        rank_step_median_ms=[statistics.median(r["step_ms"].tolist())
+                             for r in recs],
+        single_peak_bytes=ref["peak_bytes"],
+        collectives_step2=comm[0], label=RANKS_LABEL.format(r=TP_RANKS))
+    log(json.dumps({"sharded_train": train, "card": card}))
+
+    # 13.2
+    q, kc, vc, lens = splitk_inputs(seed, device)
+    want = decode_attention(q, kc, vc, lens)
+    plain_ms = []
+    for _ in range(SPLITK_REPS + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t1) * 1e3)
+    want = want.cpu().numpy()
+    del q, kc, vc, lens
+    release()
+    sk_err = max(float(np.abs(r["splitk_out"] - want).max()) for r in recs)
+    check(sk_err < SPLITK_TOL, f"13.2: split-K is {sk_err} from "
+          f"decode_attention (>= {SPLITK_TOL})")
+    splitk = dict(mesh=list(SPLITK_MESH), **SPLITK_SHAPE, dtype="float32",
+                  max_abs_err=sk_err, tol=SPLITK_TOL,
+                  rank_ms=[statistics.median(r["splitk_ms"].tolist())
+                           for r in recs],
+                  single_ms=statistics.median(plain_ms[1:]))
+    log(json.dumps({"split_k": splitk, "card": card}))
+
+    # 13.3
+    ins = [torch.from_numpy(r["pmean_in"]).to(device) for r in recs]
+    qs = [quantize_int8(x) for x in ins]
+    acc = qs[0][0].float() * qs[0][1]
+    for qq, sc in qs[1:]:
+        acc = acc + qq.float() * sc
+    parent = (acc / len(qs)).cpu().numpy()
+    exact = (sum(x.double() for x in ins) / len(ins)).float().cpu().numpy()
+    bound = float(sum(sc for _, sc in qs)) / (2 * len(qs))
+    pm_err = max(float(np.abs(r["pmean_out"] - exact).max()) for r in recs)
+    same = all(np.array_equal(r["pmean_out"], parent) for r in recs)
+    check(same, "13.3: compressed_pmean differs from the per-rank "
+                "quantization computed in the parent")
+    check(pm_err <= bound * (1 + 1e-5) + 1e-7,
+          f"13.3: compressed_pmean is {pm_err} from the exact mean "
+          f"(> the int8 grid's {bound})")
+    pmean = dict(leaf=TP_PMEAN_LEAF, shape=list(ins[0].shape),
+                 max_abs_err=pm_err, grid_bound=bound, equal_to_parent=same)
+    del ins, qs, acc
+    log(json.dumps({"compressed_pmean": pmean, "card": card}))
+
+    # 13.4
+    t1 = time.perf_counter()
+    names = [n for n, _ in model_class(cfg)(
+        cfg, device="meta", init=False).named_parameters()]
+    skel = ({n: None for n in names},
+            {"m": {n: None for n in names}, "v": {n: None for n in names},
+             "step": None})
+    step, (named, opt), _ = CheckpointManager(out_dir / "ckpt").restore(
+        None, skel, device=device)
+    parent_restore_s = time.perf_counter() - t1
+    check(step == TP_STEPS and int(opt["step"]) == TP_STEPS
+          and all(int(r["restored_step"]) == TP_STEPS for r in recs[:2]),
+          "13.4: the restored step counter")
+    pspecs = SH.param_specs(named)
+    mismatch = []
+    for mesh_shape, tag, ranks in ((TP_MESH, "dig22", range(TP_RANKS)),
+                                   (TP_RESTORE_MESH, "dig21", range(2))):
+        names_of = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+        for name in names:
+            pl = placements_for(pspecs[name], names_of)
+            for kind, t in (("p", named[name]), ("m", opt["m"][name]),
+                            ("v", opt["v"][name])):
+                for r in ranks:
+                    coord = divmod(r, mesh_shape[1])
+                    d = digest(t[block_index(t.shape, mesh_shape, pl,
+                                             coord)])
+                    if recs[r][f"{tag}/{kind}/{name}"].tolist() != d:
+                        mismatch.append((tag, r, kind, name))
+    check(not mismatch, f"13.4: blocks differ from the saved state: "
+          f"{mismatch[:4]}")
+    del named, opt
+    release()
+    restore = dict(saved_on=list(TP_MESH), restored_on=list(TP_RESTORE_MESH),
+                   leaves=3 * len(recs[0]["leaf_err"]),
+                   save_s=float(recs[0]["save_s"]),
+                   save_gather_s=float(recs[0]["save_gather_s"]),
+                   save_write_s=float(recs[0]["save_write_s"]),
+                   rank_restore_s=[float(r["restore_s"]) for r in recs[:2]],
+                   parent_restore_s=parent_restore_s, bit_equal=True)
+    log(json.dumps({"resharding_restore": restore, "card": card}))
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"phase 13 launched a kernel or a plain version: {counts}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    elapsed = time.perf_counter() - t0
+    log(f"phase 13 done in {elapsed:.1f} s ({card}; single process "
+        f"{t_ref:.1f} s, spawn of {TP_RANKS} ranks {spawn_s:.1f} s, their "
+        f"legs {[round(float(r['seconds']), 1) for r in recs]} s)")
+    return dict(card=card, train=train, split_k=splitk, pmean=pmean,
+                restore=restore, spawn_s=spawn_s, single_s=t_ref,
+                rank_seconds=[float(r["seconds"]) for r in recs],
+                elapsed_s=elapsed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4862,11 +5407,12 @@ def main() -> int:
 
 
 def run_phases(seed: int, device):
-    """Phases 2-12 on ``device``; returns (the rows of the kernels line,
+    """Phases 2-13 on ``device``; returns (the rows of the kernels line,
     the serve phase's results, the forest phase's under ``"forest"``,
     phase 7's under ``"comparison"``, phase 8's under ``"zoo"``, phase 9's
     under ``"model_only"``, phase 10's under ``"train"``, phase 11's under
-    ``"dryrun"`` and phase 12's under ``"ranks"``)."""
+    ``"dryrun"``, phase 12's under ``"ranks"`` and phase 13's under
+    ``"sharded"``)."""
     import numpy as np
     import torch
 
@@ -4921,6 +5467,8 @@ def run_phases(seed: int, device):
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
     serve["ranks"] = ranks = ranks_phase(seed, device, forest)
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    serve["sharded"] = tp_phase(seed, device)
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
 
     replaces = {"fused": "src/repro/kernels/veb_search.py:228",
                 "rows": "src/repro/kernels/veb_search.py:93",

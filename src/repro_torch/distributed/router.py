@@ -45,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import layout
-from repro_torch.core.deltatree import shard_of
+from repro_torch.core.deltatree import resolve_device, shard_of
 from repro_torch.launch.mesh import forest_ranks, make_forest_mesh, world
 from repro_torch.obs import trace as TR
 
@@ -118,19 +118,21 @@ def gather_batch(r: Routing, dense: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _forest_mesh_cached(num_shards: int, world_size: int):
+def _forest_mesh_cached(num_shards: int, world_size: int, device: str):
     del world_size  # cache key only: make_forest_mesh reads the live group
-    return make_forest_mesh(num_shards)
+    return make_forest_mesh(num_shards, device=device)
 
 
-def forest_mesh(num_shards: int):
-    """The "shards" mesh for ``num_shards``, cached per (num_shards, world
-    size): a change of the process group within one process gets a fresh
-    mesh instead of a stale cached one.  A mesh of more than one rank is
+def forest_mesh(num_shards: int, device=None):
+    """The "shards" mesh for ``num_shards`` on ``device``'s type (the card
+    by default), cached per (num_shards, world size, device type): a
+    change of the process group within one process gets a fresh mesh
+    instead of a stale cached one.  A mesh of more than one rank is
     made by every rank together (it creates process groups), so every rank
     calls this in the same order.  The forest's own paths read only its
     size, through `span`, and never build it."""
-    return _forest_mesh_cached(num_shards, world()[1])
+    return _forest_mesh_cached(num_shards, world()[1],
+                               resolve_device(device).type)
 
 
 class Span(NamedTuple):

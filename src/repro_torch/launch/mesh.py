@@ -17,11 +17,14 @@ The meshes are ``torch.distributed`` device meshes over the ranks of the
 default process group, under the JAX module's axis names:
 `make_forest_mesh` (the DeltaForest's 1-D "shards" mesh) and
 `make_host_mesh` (a ("data", "model") mesh).  Without a process group
-each gives a size-1 mesh.  The forest itself needs only the mesh's size,
+each gives a size-1 mesh.  A mesh's tensors live on the card unless the
+caller names another device (`core.deltatree.resolve_device`), whatever
+the backend.  The forest itself needs only the mesh's size,
 `forest_ranks`, which is arithmetic and makes no group.
-`start_process_group` starts the group with the backend its caller names;
-nothing here picks one.  ``make_production_mesh`` and the pod meshes are
-not ported yet.
+`start_process_group` starts the group with the backend its caller names
+(or ``torchrun``'s environment gives); nothing here picks one.
+``make_production_mesh`` and the pod meshes are not ported yet.  The
+collectives over a mesh's groups are `parallel.comm`'s.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import os
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.core.deltatree import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +84,9 @@ def world() -> tuple[int, int]:
     return 0, 1
 
 
-def start_process_group(backend: str, *, rank: int, world_size: int,
-                        init_method: str,
+def start_process_group(backend: str, *, rank: int | None = None,
+                        world_size: int | None = None,
+                        init_method: str | None = None,
                         local_rank: int | None = None) -> None:
     """Start the default process group with ``backend``, which the caller
     names: ``"nccl"`` when every rank has a card of its own, ``"gloo"``
@@ -89,7 +95,16 @@ def start_process_group(backend: str, *, rank: int, world_size: int,
     its rank on its host: ``local_rank``, else ``LOCAL_RANK`` from the
     environment (as ``torchrun`` sets it), else ``rank`` (one host).
     ``init_method`` is the rendezvous, e.g. ``"file:///tmp/store"`` or
-    ``"tcp://localhost:29500"``."""
+    ``"tcp://localhost:29500"``.  Left out, ``rank``, ``world_size`` and
+    the rendezvous come from ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``)."""
+    if rank is None:
+        rank = int(os.environ["RANK"])
+    if world_size is None:
+        world_size = int(os.environ["WORLD_SIZE"])
+    if init_method is None:
+        init_method = (f"tcp://{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ['MASTER_PORT']}")
     if backend == "nccl":
         if local_rank is None:
             local_rank = int(os.environ.get("LOCAL_RANK", rank))
@@ -106,27 +121,33 @@ def start_process_group(backend: str, *, rank: int, world_size: int,
                             world_size=world_size)
 
 
-def _mesh(shape: tuple, names: tuple) -> DeviceMesh:
+def _mesh(shape: tuple, names: tuple, device=None) -> DeviceMesh:
     """A device mesh of ``shape`` over ranks 0..prod(shape)-1 of the
-    default group; a size-1 mesh needs no group (and makes none)."""
+    default group; a size-1 mesh needs no group (and makes none).  Its
+    device type is ``device``'s: the card's by default (raises without
+    one), under gloo too."""
     n = 1
     for d in shape:
         n *= d
     ranks = torch.arange(n).reshape(shape)
+    kind = resolve_device(device).type
     if n == 1:
-        return DeviceMesh("cpu", ranks, mesh_dim_names=names,
+        return DeviceMesh(kind, ranks, mesh_dim_names=names,
                           _init_backend=False, _rank=0)
-    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device, ranks, mesh_dim_names=names)
+    return DeviceMesh(kind, ranks, mesh_dim_names=names)
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:
-    """A ("data", "model") mesh over the first data * model ranks."""
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   device=None) -> DeviceMesh:
+    """A ("data", "model") mesh over the first data * model ranks, whose
+    tensors live on ``device``'s type (the card by default, under gloo
+    too).  Every rank of the group calls it, those outside the mesh
+    too."""
     _, w = world()
     if data * model > w:
         raise ValueError(f"a {data} x {model} mesh needs {data * model} "
                          f"ranks; the process group has {w}")
-    return _mesh((data, model), ("data", "model"))
+    return _mesh((data, model), ("data", "model"), device)
 
 
 def forest_ranks(num_shards: int, world_size: int) -> int:
@@ -137,9 +158,11 @@ def forest_ranks(num_shards: int, world_size: int) -> int:
                if num_shards % d == 0)
 
 
-def make_forest_mesh(num_shards: int) -> DeviceMesh:
+def make_forest_mesh(num_shards: int, *, device=None) -> DeviceMesh:
     """1-D "shards" mesh of `forest_ranks` ranks for the DeltaForest
-    (`repro_torch.distributed`); ranks past the mesh hold a replica of mesh
-    position rank mod R.  Without a process group (or with one rank) this
-    is a size-1 mesh: every shard on this process, as in unit tests."""
-    return _mesh((forest_ranks(num_shards, world()[1]),), ("shards",))
+    (`repro_torch.distributed`) on ``device``'s type (the card by
+    default); ranks past the mesh hold a replica of mesh position rank
+    mod R.  Without a process group (or with one rank) this is a size-1
+    mesh: every shard on this process, as in unit tests."""
+    return _mesh((forest_ranks(num_shards, world()[1]),), ("shards",),
+                 device)

@@ -7,12 +7,18 @@ A block's kinds are static, from the config's layer pattern
 written in place: ``{"k", "v"}`` (B, S, KVH, HD) for attention,
 ``{"ckv", "krope"}`` (B, S, kvl) / (B, S, qr) for MLA, ``{"state",
 "conv"}`` (B, H, P, N) float32 / (B, w-1, conv_dim) for SSD.
+
+`parallel.ax.constrain` sits at JAX's sites and, sharded, also on each
+norm's output and each mixer / FFN output before its residual add (the
+edges of the tensor-parallel region, where the gradient / the output is
+a partial sum over "model"); without rules every one is a no-op.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mamba2 as m2
@@ -32,6 +38,9 @@ from repro_torch.models.layers.mla import (
     mla_train,
 )
 from repro_torch.models.layers.moe import MoE, moe_apply
+from repro_torch.parallel.ax import constrain
+
+_BSE = ("batch", "seq", "embed")
 
 
 def block_kinds(cfg: ModelConfig, i: int) -> tuple[str, str]:
@@ -72,10 +81,11 @@ def ffn_residual(layer: Block, cfg: ModelConfig,
                  x: torch.Tensor) -> torch.Tensor:
     """x plus the layer's FFN of its second norm, where it has one."""
     if hasattr(layer, "ffn"):
-        h = layer.norm2(x)
-        x = x + (moe_apply(layer.ffn, cfg, h) if layer.kinds[1] == "moe"
-                 else mlp_apply(layer.ffn, h))
-    return x
+        h = constrain(layer.norm2(x), *_BSE)
+        y = (moe_apply(layer.ffn, cfg, h) if layer.kinds[1] == "moe"
+             else mlp_apply(layer.ffn, h))
+        x = x + constrain(y, *_BSE)
+    return constrain(x, *_BSE)
 
 
 # --------------------------------------------------------------- training ---
@@ -84,14 +94,19 @@ def ffn_residual(layer: Block, cfg: ModelConfig,
 def block_train(layer: Block, cfg: ModelConfig, x, positions,
                 causal: bool = True):
     """The block over a whole sequence, no cache."""
-    h = layer.norm1(x)
+    if isinstance(x, DTensor) and (layer.kinds[0] == "ssm" or cfg.mla):
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded step runs attention mixers only; "
+            "MLA and the SSD over a mesh are not ported (ROADMAP Queue 1)")
+    x = constrain(x, *_BSE)
+    h = constrain(layer.norm1(x), *_BSE)
     if layer.kinds[0] == "ssm":
         y = m2.mamba2_train(layer.mixer, cfg, h)
     elif cfg.mla:
         y = mla_train(layer.mixer, cfg, h, positions, causal=causal)
     else:
         y = attn_train(layer.mixer, cfg, h, positions, causal=causal)
-    return ffn_residual(layer, cfg, x + y)
+    return ffn_residual(layer, cfg, x + constrain(y, *_BSE))
 
 
 # ---------------------------------------------------------------- caching ---
@@ -155,6 +170,8 @@ def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
         rows = torch.arange(x.shape[0], device=x.device)
         cache["k"][rows, length] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, length] = v[:, 0].to(cache["v"].dtype)
-        o = decode_attention(q, cache["k"], cache["v"], length + 1)
+        kc = constrain(cache["k"], "batch", "decode_seq", None, None)
+        vc = constrain(cache["v"], "batch", "decode_seq", None, None)
+        o = decode_attention(q, kc, vc, length + 1)
         y = attn_out(layer.mixer, o)
     return ffn_residual(layer, cfg, x + y), cache

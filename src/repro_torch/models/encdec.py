@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.deltatree import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -169,6 +170,10 @@ class EncDec(LanguageModel):
     def forward_train(self, tokens, frames) -> torch.Tensor:
         """tokens (B, S), frames (B, T_enc, D) -> logits (B, S, V)."""
         cfg = self.cfg
+        if isinstance(self.embed.tok, DTensor):
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder-decoder over a mesh is not ported "
+                "(ROADMAP Queue 1)")
         enc_out = self.encode(frames)
         x = self._embed(tokens)
         positions = self._positions(*x.shape[:2])

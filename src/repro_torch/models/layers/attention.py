@@ -6,6 +6,12 @@ PyTorch here: products through ``torch.matmul`` / ``einsum``, the scores
 and softmax in float32.  The paged decode path does not use them: it runs
 `repro_torch.kernels.delta_paged_attention`.  ``decode_attention`` is the
 dense-cache oracle the serve path is held against.
+
+Sharded (DTensor activations, `repro_torch.parallel`): the projections
+read their weights through `parallel.ax.gathered`, and `attend` runs the
+same attention on each rank's rows and heads (`parallel.ax.local_map`):
+heads on "model" where the query and KV head counts both split, else
+every head on every rank.
 """
 
 from __future__ import annotations
@@ -14,9 +20,11 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import normal_param, rope_apply
+from repro_torch.parallel.ax import gathered, local_map
 
 NEG_INF = -1e30
 
@@ -46,9 +54,9 @@ def qkv_proj(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, rope: bool = True):
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ attn.wq
-    k = x @ attn.wk
-    v = x @ attn.wv
+    q = x @ gathered(attn.wq)
+    k = x @ gathered(attn.wk)
+    v = x @ gathered(attn.wv)
     if cfg.qkv_bias:
         q, k, v = q + attn.bq, k + attn.bk, v + attn.bv
     q = q.reshape(b, s, h, hd)
@@ -167,10 +175,34 @@ def decode_attention(q, k_cache, v_cache, length):
 def attend(cfg: ModelConfig, q, k, v, causal: bool = True):
     """Attention over a whole sequence: the naive softmax up to
     ``cfg.flash_threshold`` query tokens, the chunked flash past it."""
+    if isinstance(q, DTensor):
+        return _attend_sharded(cfg, q, k, v, causal)
     if q.shape[1] > cfg.flash_threshold:
         return flash_attention(q, k, v, causal=causal,
                                q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
     return attention_naive(q, k, v, causal=causal)
+
+
+def _attend_sharded(cfg: ModelConfig, q, k, v, causal: bool):
+    """`attend` on each rank's block: rows as the batch lies, heads on the
+    mesh dimensions that shard the query heads where both head counts
+    split there, whole elsewhere."""
+    mesh = q.device_mesh
+    views = []
+    for p, n in zip(q.placements, mesh.mesh.shape):
+        if p == Shard(0):
+            views.append(p)
+        elif (p == Shard(2) and q.shape[2] % n == 0
+              and k.shape[2] % n == 0):
+            views.append(p)
+        else:
+            views.append(Replicate())
+    view = tuple(views)
+
+    def local(q, k, v):
+        return attend(cfg, q, k, v, causal)
+
+    return local_map(local, mesh, (q, k, v), (view, view, view), view, view)
 
 
 def attn_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -182,4 +214,4 @@ def attn_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 def attn_out(attn: Attention, o_bshd: torch.Tensor) -> torch.Tensor:
     b, s = o_bshd.shape[:2]
-    return o_bshd.reshape(b, s, -1) @ attn.wo
+    return o_bshd.reshape(b, s, -1) @ gathered(attn.wo)

@@ -6,6 +6,11 @@ activation dtype), as the JAX functions take parameter dicts; the modules
 (`RMSNorm`, `SwiGLU`, `Embedding`) hold the parameters under the JAX
 package's names, so a JAX parameter tree maps onto ``state_dict`` keys
 one to one (`repro_torch.models.weights`).
+
+Sharded (a DTensor parameter, `repro_torch.parallel`): each product reads
+its weight through `parallel.ax.gathered` (FSDP's all-gather over
+"data"), and the vocab-sharded embedding lookup is written by hand
+(`embed_apply`).  A plain tensor takes the same code as before.
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.parallel.ax import gathered, like, local_map, local_offset
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -84,6 +92,7 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
     cos, sin = torch.cos(ang), torch.sin(ang)
     if x.ndim == positions.ndim + 2:                    # broadcast over heads
         cos, sin = cos[..., None, :], sin[..., None, :]
+    cos, sin = like(cos, x), like(sin, x)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -94,10 +103,10 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor,
 
 def mlp_apply(ffn: "SwiGLU", x: torch.Tensor) -> torch.Tensor:
     """SwiGLU (LLaMA-style)."""
-    g = x @ ffn.w_gate
-    u = x @ ffn.w_up
+    g = x @ gathered(ffn.w_gate)
+    u = x @ gathered(ffn.w_up)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ ffn.w_down
+    return h @ gathered(ffn.w_down)
 
 
 class SwiGLU(nn.Module):
@@ -133,15 +142,44 @@ class Embedding(nn.Module):
 
 
 def embed_apply(embed: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(embed.tok, DTensor):
+        return _sharded_lookup(embed.tok, tokens)
     return embed.tok[tokens]
+
+
+def _sharded_lookup(tok: DTensor, tokens) -> DTensor:
+    """``tok[tokens]`` for a table sharded (V on "model", D on "data"):
+    the table's D gathered, each rank looks the ids up in its vocab rows
+    (the others read zero) and the rows are summed over the vocab axes;
+    ids (B, S) keep their rows' layout, the output (B, S, D) too."""
+    mesh = tok.device_mesh
+    tab_view = tuple(p if p == Shard(0) else Replicate()
+                     for p in tok.placements)
+    tokens = like(torch.as_tensor(tokens, device=tok.device), tok)
+    ids_view = tuple(Replicate() if t == Shard(0) or p != Shard(0) else p
+                     for p, t in zip(tokens.placements, tab_view))
+    out_view = tuple(Partial() if t == Shard(0) else i
+                     for t, i in zip(tab_view, ids_view))
+    out = tuple(Replicate() if p.is_partial() else p for p in out_view)
+    off, n = local_offset(mesh, tab_view, 0, tok.shape[0])
+
+    def lookup(tab, ids):
+        rel = ids.long() - off
+        hit = (rel >= 0) & (rel < n)
+        rows = tab[rel.clamp(0, n - 1)]
+        zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+        return torch.where(hit[..., None], rows, zero)
+
+    return local_map(lookup, mesh, (tok, tokens), (tab_view, ids_view),
+                     out_view, out)
 
 
 def logits_apply(embed: Embedding, x: torch.Tensor,
                  softcap: float = 0.0) -> torch.Tensor:
     if hasattr(embed, "head"):
-        logits = x @ embed.head
+        logits = x @ gathered(embed.head)
     else:
-        logits = x @ embed.tok.t()
+        logits = x @ gathered(embed.tok).t()
     logits = logits.float()
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)

@@ -4,7 +4,15 @@ capacity-bounded dispatch (port of ``repro.models.layers.moe``).
 The JAX function is plain ``jnp`` (einsums, ``argsort``, ``searchsorted``
 and scatters, no Pallas kernel), so it stays plain PyTorch here: the
 grouped expert GEMM is one ``torch.bmm`` over the (E, C, D) expert batch.
-JAX's ``constrain`` is a sharding hint and has no counterpart on one card.
+
+Sharded (DTensor activations, `repro_torch.parallel`), `moe_apply` runs
+by hand (`parallel.ax.local_map`): every rank routes and dispatches all
+the tokens (their rows gathered over "data"), so capacity and drops are
+the unsharded ones; it runs its own experts ("expert" on "model", each
+expert's weights gathered over "data") on its share of their capacity
+slots ("expert_cap" on "data", JAX's ``constrain`` at the same site), and
+the combined rows are summed over the mesh back to the batch's layout.
+With top-2 a token's sum is still ``0 + a + b``, exact in any order.
 
 Which (token, expert) pairs run and which drop equals JAX bit for bit:
 
@@ -33,9 +41,16 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import SwiGLU, mlp_apply, normal_param
+from repro_torch.parallel.ax import (
+    DATA_AXES,
+    constrain,
+    local_map,
+    local_offset,
+)
 
 
 class MoE(nn.Module):
@@ -68,7 +83,11 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
 def route(moe: MoE, cfg: ModelConfig, xf: torch.Tensor):
     """(gates (T, K) float32 renormalised over the k chosen, expert ids
     (T, K) int64) of tokens ``xf`` (T, D)."""
-    logits = xf.float() @ moe.router
+    return _route(moe.router, cfg, xf)
+
+
+def _route(router: torch.Tensor, cfg: ModelConfig, xf: torch.Tensor):
+    logits = xf.float() @ router
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = vals[:, :cfg.moe_top_k], idx[:, :cfg.moe_top_k]
@@ -132,30 +151,76 @@ def dispatch(cfg: ModelConfig, gates: torch.Tensor,
 
 def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(moe, cfg, x)
     b, s, d = x.shape
-    e = cfg.moe_experts
-    t = b * s
-    xf = x.reshape(t, d)
+    xf = x.reshape(b * s, d)
     gates, idx = route(moe, cfg, xf)
     dp = dispatch(cfg, gates, idx)
-    valid = dp.slot_token >= 0
-    tok = torch.clamp(dp.slot_token, min=0)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    xg = torch.where(valid[:, None], xf[tok], zero).reshape(e, dp.c, d)
-
-    # grouped expert GEMM
-    g = torch.bmm(xg, moe.w_gate)
-    u = torch.bmm(xg, moe.w_up)
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    y = torch.bmm(h, moe.w_down).reshape(e * dp.c, d)
-
-    # weighted combine (scatter-add) in the activation dtype
-    contrib = y * dp.slot_gate[:, None].to(y.dtype)
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device).index_add_(
-        0, tok, torch.where(valid[:, None], contrib, zero))
+    out = _experts(xf, dp.slot_token, dp.slot_gate, moe.w_gate, moe.w_up,
+                   moe.w_down)
     if hasattr(moe, "shared"):
         out = out + mlp_apply(moe.shared, xf)
     return out.reshape(b, s, d)
+
+
+def _experts(xf, slot_token, slot_gate, w_gate, w_up, w_down):
+    """The tokens ``xf`` (T, D) through the experts of ``w_gate`` /
+    ``w_up`` (E, D, F) and ``w_down`` (E, F, D) in their slots
+    (``slot_token`` (E * C,), -1 empty), each output weighted by its
+    slot's gate and scatter-added to its token's row: (T, D)."""
+    t, d = xf.shape
+    e = w_gate.shape[0]
+    valid = slot_token >= 0
+    tok = torch.clamp(slot_token, min=0)
+    zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
+    xg = torch.where(valid[:, None], xf[tok], zero).reshape(e, -1, d)
+
+    # grouped expert GEMM
+    g = torch.bmm(xg, w_gate)
+    u = torch.bmm(xg, w_up)
+    h = torch.nn.functional.silu(g.float()).to(xf.dtype) * u
+    y = torch.bmm(h, w_down).reshape(-1, d)
+
+    # weighted combine (scatter-add) in the activation dtype
+    contrib = y * slot_gate[:, None].to(y.dtype)
+    return torch.zeros((t, d), dtype=xf.dtype, device=xf.device).index_add_(
+        0, tok, torch.where(valid[:, None], contrib, zero))
+
+
+def _moe_sharded(moe: MoE, cfg: ModelConfig, x: DTensor) -> DTensor:
+    """`moe_apply` on a DTensor (B, S, D): see the module's docstring."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    whole = (Replicate(),) * mesh.ndim
+    w_view = tuple(p if p == Shard(0) else Replicate()
+                   for p in moe.w_gate.placements)
+    cap = tuple(Shard(1) if names[k] in DATA_AXES and w_view[k] != Shard(0)
+                else Replicate() for k in range(mesh.ndim))
+    out_view = tuple(Partial() if w_view[k] == Shard(0) or cap[k] == Shard(1)
+                     else Replicate() for k in range(mesh.ndim))
+    e_lo, e_n = local_offset(mesh, w_view, 0, cfg.moe_experts)
+
+    def local(xl, router, w_gate, w_up, w_down):
+        b, s, d = xl.shape
+        xf = xl.reshape(b * s, d)
+        gates, idx = _route(router, cfg, xf)
+        dp = dispatch(cfg, gates, idx)
+        c_lo, c_n = local_offset(mesh, cap, 1, dp.c)
+        sl = (slice(e_lo, e_lo + e_n), slice(c_lo, c_lo + c_n))
+        out = _experts(xf, dp.slot_token.reshape(-1, dp.c)[sl].reshape(-1),
+                       dp.slot_gate.reshape(-1, dp.c)[sl].reshape(-1),
+                       w_gate, w_up, w_down)
+        return out.reshape(b, s, d)
+
+    out = local_map(local, mesh, (x, moe.router, moe.w_gate, moe.w_up,
+                                  moe.w_down),
+                    (whole, whole, w_view, w_view, w_view), out_view,
+                    x.placements)
+    if hasattr(moe, "shared"):
+        out = out + constrain(mlp_apply(moe.shared, x), "batch", "seq",
+                              "embed")
+    return out
 
 
 def moe_ref(moe: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

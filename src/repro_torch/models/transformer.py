@@ -33,6 +33,11 @@ raises where the JAX function asserts.
 Caches are written in place (the JAX functions return new ones).  Weights
 are made on ``device`` (``cuda`` unless the caller names the CPU) from an
 explicit ``torch.Generator``, with the JAX initializer's fan-in scaling.
+
+Sharded (parameters placed by `parallel.shardings.shard_params`, the batch
+by ``shard_batch``, under `parallel.ax.logical_rules`): the same code runs
+on DTensors, `parallel.ax.constrain` at JAX's sites, and `xent` on
+vocab-sharded logits is written by hand (`_ShardedXent`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import functools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.deltatree import resolve_device
@@ -52,6 +58,16 @@ from repro_torch.models.layers.basic import (
     dtype_of,
     embed_apply,
     logits_apply,
+)
+from repro_torch.parallel import comm as C
+from repro_torch.parallel.ax import (
+    axis_of,
+    constrain,
+    grad_placements,
+    like,
+    local_offset,
+    redistribute_local,
+    wrap,
 )
 
 # the decoder families; "audio" is the encoder-decoder of `models.encdec`
@@ -110,11 +126,79 @@ def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy over labels >= 0, as the JAX function
     computes it: logsumexp in float32, the label's logit rounded to bf16
     (JAX contracts a bf16 one-hot with the logits cast to bf16)."""
+    if isinstance(logits, DTensor):
+        return _ShardedXent.apply(logits, labels)
     lse = torch.logsumexp(logits.float(), dim=-1)
     lab = torch.gather(logits.to(torch.bfloat16), -1,
                        labels.clamp(min=0).long()[..., None])[..., 0].float()
     mask = (labels >= 0).float()
     return ((lse - lab) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+class _ShardedXent(torch.autograd.Function):
+    """`xent` on a DTensor of logits (B, S, V), rows over the data axes
+    and the vocab over "model", written by hand: each rank's rows and vocab
+    slice, the max and the sum of exponentials all-reduced over the vocab
+    axes, the label's logit (bf16, as `xent`) read where the label falls
+    and summed over them, the masked mean over the data axes.  Returns the
+    replicated 0-d loss.  The backward is softmax minus the label's bf16-
+    rounded one-hot, over the valid count."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        mesh = logits.device_mesh
+        view = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                     for p in logits.placements)
+        lg = redistribute_local(logits._local_tensor, mesh, logits.placements,
+                                view).float()
+        labels = like(torch.as_tensor(labels, device=lg.device), logits)
+        rows = tuple(p if p == Shard(0) else Replicate() for p in view)
+        lab = redistribute_local(labels._local_tensor, mesh,
+                                 labels.placements, rows).long()
+        vocab = [axis_of(mesh, k)[2] for k, p in enumerate(view)
+                 if p == Shard(2) and mesh.size(k) > 1]
+        batch = [axis_of(mesh, k)[2] for k, p in enumerate(view)
+                 if p == Shard(0) and mesh.size(k) > 1]
+        off, n = local_offset(mesh, view, 2, logits.shape[2])
+        m = lg.amax(dim=-1)
+        for g in vocab:
+            m = C.all_reduce(m, g, "max")
+        se = torch.exp(lg - m[..., None]).sum(-1)
+        rel = lab.clamp(min=0) - off
+        hit = (rel >= 0) & (rel < n)
+        idx = rel.clamp(0, n - 1)
+        picked = torch.gather(lg.to(torch.bfloat16), -1,
+                              idx[..., None])[..., 0].float()
+        picked = torch.where(hit, picked, torch.zeros_like(picked))
+        both = torch.stack([se, picked])
+        for g in vocab:
+            both = C.all_reduce(both, g)
+        lse = torch.log(both[0]) + m
+        mask = (lab >= 0).float()
+        tot = torch.stack([((lse - both[1]) * mask).sum(), mask.sum()])
+        for g in batch:
+            tot = C.all_reduce(tot, g)
+        den = torch.clamp(tot[1], min=1.0)
+        ctx.save_for_backward(lg, lse, idx, hit, mask, den)
+        ctx.mesh, ctx.view = mesh, view
+        ctx.src, ctx.shape = tuple(logits.placements), logits.shape
+        loss = tot[0] / den
+        return wrap(loss, mesh, [Replicate()] * mesh.ndim, ())
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, idx, hit, mask, den = ctx.saved_tensors
+        mesh = ctx.mesh
+        g = redistribute_local(g._local_tensor, mesh, g.placements,
+                               [Replicate()] * mesh.ndim)
+        gt = g * mask / den                                  # (b, s)
+        d = torch.exp(lg - lse[..., None]) * gt[..., None]
+        lab_g = torch.where(hit, gt, torch.zeros_like(gt))
+        lab_g = lab_g.to(torch.bfloat16).float()
+        d.scatter_add_(-1, idx[..., None], -lab_g[..., None])
+        want = grad_placements(ctx.src)
+        d = redistribute_local(d, mesh, ctx.view, want)
+        return wrap(d, mesh, want, ctx.shape), None
 
 
 class LanguageModel(nn.Module):
@@ -144,8 +228,9 @@ class LanguageModel(nn.Module):
                             device=self.device)[None].expand(b, s)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
-        return logits_apply(self.embed, x, self.cfg.logits_softcap)
+        x = constrain(self.final_norm(x), "batch", "seq", "embed")
+        return constrain(logits_apply(self.embed, x, self.cfg.logits_softcap),
+                         "batch", "seq", "vocab")
 
 
 def _generator(device, seed: int, generator, init: bool):
@@ -209,7 +294,7 @@ class Transformer(LanguageModel):
             ve = torch.as_tensor(vision_embeds, device=self.device)
             x = torch.cat([ve.to(x.dtype), x], dim=1)
         b, s, _ = x.shape
-        return x, self._positions(b, s)
+        return constrain(x, "batch", "seq", "embed"), self._positions(b, s)
 
     # --------------------------------------------------------- training ---
 

@@ -5,9 +5,13 @@ from repro_torch.optim.adamw import (
     adamw_update,
     cosine_lr,
 )
-from repro_torch.optim.compress import dequantize_int8, quantize_int8
+from repro_torch.optim.compress import (
+    compressed_pmean,
+    dequantize_int8,
+    quantize_int8,
+)
 
 __all__ = [
     "AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
-    "quantize_int8", "dequantize_int8", "adamw_step_",
+    "quantize_int8", "dequantize_int8", "compressed_pmean", "adamw_step_",
 ]

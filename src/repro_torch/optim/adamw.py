@@ -15,6 +15,13 @@ Parameters, gradients and moments are dicts of tensors (name -> tensor).
 leaf, so only one leaf's float32 temporaries are alive at a time (a whole
 tree's would not fit beside a full-width model);  `adamw_update` is the
 functional form of the same code, for trees the caller keeps.
+
+Sharded leaves (DTensors, `repro_torch.parallel`): the moments are made
+beside each parameter's block with its placements, the norm is over every
+block of every leaf (each rank's sum of squares, a replicated leaf's
+divided by its copies, summed over the mesh), and each rank updates its
+blocks in place with the same arithmetic.  The gradients must be laid out
+as their parameters (`train.make_train_step` sees to it).
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.parallel import comm as C
+from repro_torch.parallel.ax import axis_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,21 +80,50 @@ def adamw_init(cfg: AdamWConfig, params: dict) -> dict:
     int32 step counter on the parameters' device."""
     dt = _state_dtype(cfg)
     device = next(iter(params.values())).device
+
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=dt)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
     return {
-        "m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-              for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-              for k, p in params.items()},
+        "m": {k: zeros(p) for k, p in params.items()},
+        "v": {k: zeros(p) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def global_norm(grads) -> torch.Tensor:
     """The float32 norm over every leaf of ``grads`` (a dict or a
-    sequence of tensors)."""
-    leaves = grads.values() if isinstance(grads, dict) else grads
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves))
+    sequence of tensors); over every block of sharded leaves (a plain
+    0-d tensor, the same on every rank)."""
+    leaves = list(grads.values() if isinstance(grads, dict) else grads)
+    sharded = [g for g in leaves if isinstance(g, DTensor)]
+    if not sharded:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    if len(sharded) != len(leaves):
+        raise ValueError("a mix of sharded and plain gradients")
+    mesh = sharded[0].device_mesh
+    total = 0
+    for g in sharded:
+        copies = 1
+        for k, p in enumerate(g.placements):
+            if isinstance(p, Replicate):
+                copies *= mesh.size(k)
+            elif not p.is_shard():
+                raise ValueError(f"a gradient laid out as {g.placements}")
+        total = total + torch.sum(torch.square(g._local_tensor.float())) \
+            / copies
+    for k in range(mesh.ndim):
+        n, _, group = axis_of(mesh, k)
+        if n > 1:
+            total = C.all_reduce(total, group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -102,8 +142,8 @@ def adamw_step_(cfg: AdamWConfig, params: dict, grads: dict,
     c1 = 1 - torch.pow(b1, step)
     c2 = 1 - torch.pow(b2, step)
     for k, p in params.items():
-        m, v = state["m"][k], state["v"][k]
-        g = grads[k].float() * scale
+        p, m, v = _local(p), _local(state["m"][k]), _local(state["v"][k])
+        g = _local(grads[k]).float() * scale
         m32 = b1 * m.float() + (1 - b1) * g
         v32 = b2 * v.float() + (1 - b2) * g * g
         del g

@@ -15,14 +15,22 @@ microbatch ``a`` taking rows ``b * A + a`` (JAX reshapes to (B/A, A, ...)
 and swaps the axes); losses and gradients add as ``acc + g.float() / A``
 into float32 zeros, in microbatch order.  With A = 1 the gradients keep
 the parameters' dtype, as JAX's do.
+
+Sharded (DTensor parameters and batch, `repro_torch.parallel`, run under
+``logical_rules``): the same step; each gradient is brought to its
+parameter's placements by hand (a partial sum over the data rows reduced,
+`parallel.ax.redistribute_local`) before the update, and the metrics are
+plain 0-d tensors, the same on every rank.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.registry import api
 from repro_torch.optim import AdamWConfig, adamw_step_
+from repro_torch.parallel.ax import redistribute_local, wrap
 
 
 def microbatch(batch: dict, accum_steps: int, a: int) -> dict:
@@ -33,12 +41,29 @@ def microbatch(batch: dict, accum_steps: int, a: int) -> dict:
             for k, v in batch.items()}
 
 
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` in the placements of its parameter ``p``."""
+    if not isinstance(g, DTensor) or tuple(g.placements) == \
+            tuple(p.placements):
+        return g
+    loc = redistribute_local(g._local_tensor, g.device_mesh, g.placements,
+                             p.placements)
+    return wrap(loc, g.device_mesh, p.placements, g.shape)
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A replicated 0-d DTensor's value as a plain tensor."""
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def make_train_step(cfg, ocfg: AdamWConfig, accum_steps: int = 1):
     m = api(cfg)
 
     def grads_of(model, params, batch):
         loss = m.loss_fn(model, batch)
-        return loss.detach(), torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss, params)
+        return (_plain(loss.detach()),
+                [_laid_out_as(g, p) for g, p in zip(grads, params)])
 
     def train_step(model, opt_state, batch):
         named = dict(model.named_parameters())
@@ -49,7 +74,9 @@ def make_train_step(cfg, ocfg: AdamWConfig, accum_steps: int = 1):
             loss, grads = grads_of(model, params, batch)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     if isinstance(p, DTensor) else
+                     torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in params]
             for a in range(accum_steps):
                 lo, gs = grads_of(model, params,

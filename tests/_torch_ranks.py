@@ -153,20 +153,21 @@ def mesh_leg(rec: dict) -> None:
     from repro_torch.distributed import router as R
     from repro_torch.launch.mesh import make_forest_mesh, make_host_mesh
 
-    m4 = R.forest_mesh(4)
+    m4 = R.forest_mesh(4, "cpu")
     with mock.patch.object(dist, "get_world_size", return_value=1):
-        m1 = R.forest_mesh(4)
+        m1 = R.forest_mesh(4, "cpu")
     rec["rank/mesh"] = np.asarray(
-        [m4.size(), R.forest_mesh(4) is m4, m1.size(), m1 is m4,
-         R.forest_mesh(4) is m4, m4.mesh_dim_names == ("shards",)])
-    rec["rank/mesh_sizes"] = np.asarray([make_forest_mesh(s).size()
-                                         for s in MESH_SHARDS])
+        [m4.size(), R.forest_mesh(4, "cpu") is m4, m1.size(), m1 is m4,
+         R.forest_mesh(4, "cpu") is m4, m4.mesh_dim_names == ("shards",)])
+    rec["rank/mesh_sizes"] = np.asarray([make_forest_mesh(
+        s, device="cpu").size() for s in MESH_SHARDS])
     rec["rank/span_ranks"] = np.asarray([R.span(s).ranks
                                          for s in MESH_SHARDS])
     with mock.patch.object(dist, "get_world_size", return_value=1):
         rec["rank/span_one"] = np.asarray(R.span(4).ranks)
     w = dist.get_world_size() if dist.is_initialized() else 1
-    hm = make_host_mesh(2, w // 2) if w > 1 else make_host_mesh()
+    hm = (make_host_mesh(2, w // 2, device="cpu") if w > 1
+          else make_host_mesh(device="cpu"))
     rec["rank/host_mesh"] = np.asarray(list(hm.shape))
     rec["rank/host_mesh_names"] = np.asarray(hm.mesh_dim_names)
 
@@ -290,7 +291,7 @@ def run_legs(world: int) -> dict:
     return rec
 
 
-def _rank_main(rank: int, world: int, out_dir: str) -> None:
+def _rank_main(rank: int, world: int, out_dir: str, legs) -> None:
     import torch
     import torch.distributed as dist
 
@@ -301,21 +302,28 @@ def _rank_main(rank: int, world: int, out_dir: str) -> None:
                         init_method=f"file://{out_dir}/store")
     try:
         t0 = time.perf_counter()
-        rec = run_legs(world)
+        rec = legs(world, out_dir)
         rec["rank/seconds"] = np.asarray(time.perf_counter() - t0)
         np.savez(f"{out_dir}/rank{rank}.npz", **rec)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, out_dir: Path, timeout: float = 600) -> list:
-    """Run `run_legs(world)` on ``world`` gloo ranks; returns each rank's
-    record.  A rank that raises, or a run past ``timeout`` seconds, fails
-    (every rank is stopped)."""
+def _forest_legs(world: int, out_dir: str) -> dict:
+    return run_legs(world)
+
+
+def spawn_ranks(world: int, out_dir: Path, timeout: float = 600,
+                legs=_forest_legs) -> list:
+    """Run ``legs(world, out_dir)`` (a module-level function returning a
+    dict of arrays; by default `run_legs(world)`) on ``world`` gloo ranks;
+    returns each rank's record.  A rank that raises, or a run past
+    ``timeout`` seconds, fails (every rank is stopped)."""
     import torch.multiprocessing as mp
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    ctx = mp.start_processes(_rank_main, args=(world, str(out_dir)),
+    ctx = mp.start_processes(_rank_main, args=(world, str(out_dir), legs),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:

@@ -359,7 +359,9 @@ def test_no_process_group_is_one_rank(monkeypatch):
     span are one rank holding every shard; `forest_ranks` is the largest
     divisor of S that fits the world size; the group helper takes only a
     backend its caller names, and under nccl the card of the rank's
-    local rank (the argument, else ``LOCAL_RANK``, else the rank)."""
+    local rank (the argument, else ``LOCAL_RANK``, else the rank).  A
+    mesh's device is the card unless the caller names another."""
+    import torch
     import torch.distributed as dist
 
     from repro_torch.distributed import router as R
@@ -371,10 +373,17 @@ def test_no_process_group_is_one_rank(monkeypatch):
     assert [forest_ranks(8, w) for w in (1, 2, 3, 5, 7)] == [1, 2, 2, 4, 4]
 
     assert not dist.is_initialized()
-    m = make_forest_mesh(8)
+    m = make_forest_mesh(8, device="cpu")
     assert m.size() == 1 and m.mesh_dim_names == ("shards",)
+    assert m.device_type == "cpu"
     assert R.span(8) == R.Span(1, 0, 8) and R.span(8).lo == 0
-    assert make_host_mesh().mesh_dim_names == ("data", "model")
+    hm = make_host_mesh(device="cpu")
+    assert hm.mesh_dim_names == ("data", "model")
+    assert hm.device_type == "cpu"
+    if not torch.cuda.is_available():
+        for make in (lambda: make_forest_mesh(8), make_host_mesh):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_host_mesh(2, 1)
     with pytest.raises(ValueError, match="'nccl' or 'gloo'"):

@@ -265,7 +265,9 @@ def test_cli_kill_and_resume_bit_exact(tmp_path):
 
 
 def test_cli_mesh_raises():
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
+    """A mesh needs a process group of its size (tests/test_torch_parallel.py
+    runs one): with none, and no backend to start one, the CLI raises."""
+    with pytest.raises(ValueError, match="ranks of a process group"):
         TR.main(CLI + ["--steps", "1", "--data", "2"])
 
 
