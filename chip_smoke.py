@@ -278,8 +278,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    meshes bit for bit (position-weighted digests of the bits).  Printed
    beside the card: losses, grad norms, step medians (host clock,
    synchronized) of the oracle and each rank, bytes, collectives,
-   split-K and save / restore seconds.  No kernel runs (every process's
-   counters stay 0).
+   split-K and save / restore seconds.  13.1 also counts each rank's
+   third step (`analysis.count` on the card; left out of the step
+   times): its FLOPs, bytes and collectives (kind, bytes, group size, in
+   order) must equal the dry-run's count of the same step on a fake
+   (2, 2) group over the meta device, run here first
+   (`launch.dryrun.mesh_count`).  13.5: 13.1's model prefills 2 × 512
+   tokens into caches of 1,024 placed by ``cache_specs`` (their length
+   on "model": 512 positions a rank) and takes 8 decode steps: each
+   rank's block of every logits within 1e-4 of the largest |logit| of
+   this process's same run, and of every cache leaf within 1e-4 of the
+   leaf's largest; prefill and decode times beside one process's.
+   13.6: the train step of DeepSeek-V2 (full width, cut to its dense
+   first layer: MLA + dense FFN), Mamba2-370m (full width, 4 of 48
+   layers) and Whisper-base (whole), float32, 2 steps on (2, 2), held as
+   13.1 is (losses 1e-4, grad norms 1e-4 relative, first moments 1e-3
+   of each leaf's largest); each config's cut printed first.  Every
+   sharded step runs under `parallel.comm.no_functional_collectives`.
+   No kernel runs (every process's counters stay 0).
 Each run of a path (fused steps, per-round steps, scans, deferred,
 budgeted, each serve run, each forest run, 6.1's fused reads and dense
 reads apart, each phase 7 run, each phase 12 leg in each rank) sets the
@@ -4884,6 +4900,18 @@ SPLITK_REPS = 5
 TP_PMEAN_LEAF = "layers.0.mixer.wq"
 TP_RESTORE_MESH = (2, 1)        # 13.4: onto ranks 0-1
 TP_TIMEOUT = 600
+TP_COUNT_STEP = TP_STEPS - 1    # 13.1's counted step (not in its times)
+TP_BUDGET_S = 200               # phase 13, spawn included
+TP_SERVE_ROWS, TP_SERVE_PROMPT = 2, 512    # 13.5: a prefill of 2 x 512,
+TP_SERVE_DECODE, TP_SERVE_CACHE = 8, 1024  # 8 decode steps, caches of 1024
+TP_SERVE_TOL = 1e-4            # of the largest |logit| / |cache value|
+# 13.6: (arch, config override, the cut as printed, rows, tokens)
+MIXER_CELLS = (
+    ("deepseek_v2_236b", dict(num_layers=1),
+     "cut to its dense prologue layer (MLA + dense FFN), 1 of 60", 2, 1024),
+    ("mamba2_370m", dict(num_layers=4), "cut to 4 of 48 layers", 2, 1024),
+    ("whisper_base", {}, "whole (6 + 6 layers, 1500 frames)", 2, 448))
+MIXER_STEPS = 2
 
 
 def collective_mode():
@@ -4916,6 +4944,38 @@ def tp_config():
 
     return dataclasses.replace(get_config("granite_8b"), num_layers=TP_LAYERS,
                                dtype="float32", param_dtype="float32")
+
+
+def mixer_config(arch: str, over: dict):
+    """13.6's config of ``arch``: float32 parameters and activations,
+    ``over`` (its cut) applied."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), dtype="float32",
+                               param_dtype="float32", **over)
+
+
+def mixer_batches(cfg, rows: int, seq: int, seed: int) -> list:
+    from repro_torch.data import DataConfig, batch_at_step, to_device
+
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=rows, seed=seed, family=cfg.family,
+                      d_model=cfg.d_model, vision_tokens=cfg.vision_tokens,
+                      encoder_seq=cfg.encoder_seq)
+    return [to_device(batch_at_step(dcfg, k), "cpu")
+            for k in range(MIXER_STEPS)]
+
+
+def serve_tokens(cfg, seed: int):
+    """13.5's prompt (TP_SERVE_ROWS, TP_SERVE_PROMPT) and TP_SERVE_DECODE
+    teacher-forced tokens, int32, drawn from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 135)
+    return (rng.integers(0, cfg.vocab_size, (TP_SERVE_ROWS, TP_SERVE_PROMPT)
+                         ).astype(np.int32),
+            rng.integers(0, cfg.vocab_size, (TP_SERVE_ROWS, TP_SERVE_DECODE)
+                         ).astype(np.int32))
 
 
 def tp_batches(cfg, seed: int) -> list:
@@ -4987,6 +5047,7 @@ def tp_legs(seed: int, device, out_dir: Path) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from repro_torch.analysis.count import count
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.transformer import Transformer
@@ -5024,10 +5085,18 @@ def tp_legs(seed: int, device, out_dir: Path) -> dict:
         C.COUNTS.clear()
         t0 = time.perf_counter()
         cm = collective_mode()
-        with logical_rules(mesh), cm:
-            model, opt, met = step(model, opt, batch)
+        if k == TP_COUNT_STEP:     # 13.1's count (it forbids DTensor's own)
+            with logical_rules(mesh):
+                (model, opt, met), cnt = count(
+                    lambda: step(model, opt, batch), live=False,
+                    device=device.type)
+            count_record(rec, "count", cnt)
+        else:
+            with logical_rules(mesh), C.no_functional_collectives(), cm:
+                model, opt, met = step(model, opt, batch)
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        if k != TP_COUNT_STEP:
+            ms.append((time.perf_counter() - t0) * 1e3)
         if k == 1:
             comm = dict(ops=dict(cm.counts), kinds=dict(C.COUNTS))
         for key in ("loss", "grad_norm", "lr"):
@@ -5101,10 +5170,280 @@ def tp_legs(seed: int, device, out_dir: Path) -> dict:
         rec["restored_step"] = np.asarray(int(ro["step"]))
         del rp, ro
     dist.barrier()
+    del named, opt, model
+    release()
+    rec["t_before_serve"] = np.asarray(time.perf_counter() - t_start)
+    serve_rank_leg(rec, seed, device, out_dir, mesh)
+    rec["t_before_mixers"] = np.asarray(time.perf_counter() - t_start)
+    for cell in MIXER_CELLS:
+        mixer_rank_leg(rec, cell, seed, device, out_dir, mesh)
     counts = read_counts()
     rec["counts"] = np.asarray([counts[k] for k in sorted(counts)])
     rec["seconds"] = np.asarray(time.perf_counter() - t_start)
     return rec
+
+
+def count_record(rec: dict, pre: str, c) -> None:
+    """A `Count`'s FLOPs, bytes and collectives (kind, bytes, group size
+    each) into ``rec`` under ``pre``."""
+    import numpy as np
+
+    rec[f"{pre}/flops"] = np.asarray(c.flops)
+    rec[f"{pre}/bytes"] = np.asarray(c.bytes)
+    rec[f"{pre}/kinds"] = np.asarray([r.kind for r in c.collectives])
+    rec[f"{pre}/nbytes"] = np.asarray([r.nbytes for r in c.collectives],
+                                      dtype=np.int64)
+    rec[f"{pre}/groups"] = np.asarray([r.group_size for r in c.collectives],
+                                      dtype=np.int64)
+
+
+def tp_prediction(cfg, ocfg) -> dict:
+    """13.1's step counted by the dry-run on a fake group of TP_RANKS at
+    TP_MESH over the meta device (`launch.dryrun.mesh_count`): rank 0's
+    FLOPs, bytes and collectives."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.dryrun import mesh_count
+    from repro_torch.models.transformer import Transformer
+
+    t0 = time.perf_counter()
+    with M.fake_process_group(TP_RANKS):
+        mesh = M.make_host_mesh(*TP_MESH, device="cpu")
+        model = Transformer(cfg, device="meta", init=False)
+        inputs = {k: torch.empty((TP_ROWS, TP_SEQ), dtype=torch.int32,
+                                 device="meta")
+                  for k in ("tokens", "labels")}
+        c = mesh_count(cfg, "train", model, inputs, mesh, ocfg=ocfg,
+                       live=False)
+    rec: dict = {}
+    count_record(rec, "pred", c)
+    rec["pred/seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def blocks_err(t, ref, mesh, scale: float) -> float:
+    """The largest |this rank's block of ``t`` - the slice of ``ref`` (a
+    whole array, mapped) its placements name|, over ``scale``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.parallel.ax import block_index, mesh_shape
+    from repro_torch.parallel.shardings import local
+
+    want = np.array(ref[block_index(t.shape, mesh_shape(mesh), t.placements,
+                                    mesh.get_coordinate())])
+    got = local(t).detach()
+    return float((got - torch.from_numpy(want).to(got.device)).abs().max()
+                 ) / scale
+
+
+def serve_reference(seed: int, device, out_dir: Path) -> dict:
+    """13.5's oracle in this one process: 13.1's model, a prefill of
+    `serve_tokens`'s prompt into TP_SERVE_CACHE-long caches, then
+    TP_SERVE_DECODE steps; each logits and every cache leaf after the last
+    step go to ``out_dir/serve_ref``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import Transformer
+
+    cfg = tp_config()
+    model = Transformer(cfg, device=device, seed=seed)
+    prompt, steps = serve_tokens(cfg, seed)
+    caches = model.init_caches(TP_SERVE_ROWS, TP_SERVE_CACHE)
+    ref = out_dir / "serve_ref"
+    ref.mkdir(parents=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = model.prefill(torch.as_tensor(prompt, device=device), caches)
+    torch.cuda.synchronize()
+    out = dict(prefill_ms=(time.perf_counter() - t0) * 1e3, decode_ms=[])
+    logits = [lg]
+    for k in range(TP_SERVE_DECODE):
+        t0 = time.perf_counter()
+        lg, caches = model.decode_step(
+            torch.as_tensor(steps[:, k:k + 1], device=device), caches,
+            torch.full((TP_SERVE_ROWS,), TP_SERVE_PROMPT + k,
+                       dtype=torch.int32, device=device))
+        torch.cuda.synchronize()
+        out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+    check(all(bool(torch.isfinite(x).all()) for x in logits),
+          "13.5: the single process's logits are not finite")
+    for j, x in enumerate(logits):
+        np.save(ref / f"logits{j}.npy", x.cpu().numpy())
+    maxes = {}
+    for i, c in enumerate(caches):
+        for k, v in c.items():
+            np.save(ref / f"cache.{i}.{k}.npy", v.cpu().numpy())
+            maxes[f"{i}.{k}"] = float(v.abs().max())
+    out["logit_max"] = max(float(x.abs().max()) for x in logits)
+    (ref / "max.json").write_text(json.dumps(dict(maxes, logits=out[
+        "logit_max"])))
+    del model, caches, logits
+    release()
+    return out
+
+
+def serve_rank_leg(rec: dict, seed: int, device, out_dir: Path,
+                   mesh) -> None:
+    """13.5 on this rank: 13.5's model placed by ``param_specs``, its
+    caches by ``cache_specs`` (length on "model"), the prompt and tokens
+    by ``batch_spec``; the same prefill and decode steps under
+    ``logical_rules`` with DTensor's collectives forbidden; each logits'
+    and cache leaf's block held to the oracle's slice."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.parallel import comm as C
+    from repro_torch.parallel import shardings as SH
+    from repro_torch.parallel.ax import logical_rules
+
+    cfg = tp_config()
+    model = Transformer(cfg, device=device, seed=seed)
+    SH.shard_params(model, SH.to_named(SH.param_specs(model), mesh))
+    release()
+    caches = model.init_caches(TP_SERVE_ROWS, TP_SERVE_CACHE)
+    caches = SH.shard_state(caches, SH.to_named(SH.cache_specs(caches, mesh),
+                                                mesh), device)
+    prompt, steps = serve_tokens(cfg, seed)
+    ref = out_dir / "serve_ref"
+    mx = json.loads((ref / "max.json").read_text())
+    errs, ms = [], []
+    with logical_rules(mesh), C.no_functional_collectives():
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        lg, caches = model.prefill(SH.shard_batch(
+            {"tokens": torch.as_tensor(prompt)}, mesh, device)["tokens"],
+            caches)
+        torch.cuda.synchronize()
+        rec["serve/prefill_ms"] = np.asarray((time.perf_counter() - t0) * 1e3)
+        errs.append(blocks_err(lg, np.load(ref / "logits0.npy"), mesh,
+                               mx["logits"]))
+        for k in range(TP_SERVE_DECODE):
+            tok = SH.shard_batch({"token": torch.as_tensor(
+                steps[:, k:k + 1])}, mesh, device)["token"]
+            t0 = time.perf_counter()
+            lg, caches = model.decode_step(
+                tok, caches, torch.full((TP_SERVE_ROWS,), TP_SERVE_PROMPT + k,
+                                        dtype=torch.int32, device=device))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            errs.append(blocks_err(lg, np.load(ref / f"logits{k + 1}.npy"),
+                                   mesh, mx["logits"]))
+    cache_err = {}
+    for i, c in enumerate(caches):
+        for k, v in c.items():
+            ref_v = np.load(ref / f"cache.{i}.{k}.npy", mmap_mode="r")
+            cache_err[f"{i}.{k}"] = blocks_err(v, ref_v, mesh,
+                                               max(mx[f"{i}.{k}"], 1e-30))
+    rec["serve/logit_err"] = np.asarray(errs)
+    rec["serve/cache_err"] = np.asarray(json.dumps(cache_err))
+    rec["serve/decode_ms"] = np.asarray(ms)
+    rec["serve/cache_block"] = np.asarray(
+        list(SH.local(caches[0]["k"]).shape))
+    del model, caches
+    release()
+
+
+def mixer_reference(cell, seed: int, device, out_dir: Path) -> dict:
+    """13.6's oracle for one of MIXER_CELLS in this one process:
+    MIXER_STEPS steps of TP_OPT on `mixer_batches`; the first moments
+    after step 1 (and each's largest |value|) go to
+    ``out_dir/mixer_ref/arch``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import to_device
+    from repro_torch.models.registry import model_class
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    arch, over, _, rows, seq = cell
+    cfg = mixer_config(arch, over)
+    ocfg = AdamWConfig(**TP_OPT)
+    model = model_class(cfg)(cfg, device=device, seed=seed)
+    named = dict(model.named_parameters())
+    opt = adamw_init(ocfg, named)
+    step = make_train_step(cfg, ocfg)
+    out = dict(loss=[], grad_norm=[], step_ms=[], params=model.param_count())
+    ref = out_dir / "mixer_ref" / arch
+    for k, batch in enumerate(mixer_batches(cfg, rows, seq, seed)):
+        batch = to_device(batch, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(met["loss"]))
+        out["grad_norm"].append(float(met["grad_norm"]))
+        if k == 0:
+            ref.mkdir(parents=True)
+            m_max = {}
+            for name in named:
+                np.save(ref / f"m.{name}.npy", opt["m"][name].cpu().numpy())
+                m_max[name] = float(opt["m"][name].abs().max())
+            (ref / "m_max.json").write_text(json.dumps(m_max))
+    check(all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]),
+          f"13.6 {arch}: the single process's loss is not finite")
+    del model, opt, named
+    release()
+    return out
+
+
+def mixer_rank_leg(rec: dict, cell, seed: int, device, out_dir: Path,
+                   mesh) -> None:
+    """13.6 on this rank: the config's sharded train step (parameters by
+    ``param_specs``, the batch by ``batch_spec``, DTensor's collectives
+    forbidden), MIXER_STEPS steps; losses, gradient norms, and after
+    step 1 each first moment's block against the oracle's slice."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.registry import model_class
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import comm as C
+    from repro_torch.parallel import shardings as SH
+    from repro_torch.parallel.ax import logical_rules
+    from repro_torch.train import make_train_step
+
+    arch, over, _, rows, seq = cell
+    cfg = mixer_config(arch, over)
+    ocfg = AdamWConfig(**TP_OPT)
+    model = model_class(cfg)(cfg, device=device, seed=seed)
+    SH.shard_params(model, SH.to_named(SH.param_specs(model), mesh))
+    release()
+    named = dict(model.named_parameters())
+    opt = adamw_init(ocfg, named)
+    step = make_train_step(cfg, ocfg)
+    ref = out_dir / "mixer_ref" / arch
+    ms = []
+    for k, batch in enumerate(mixer_batches(cfg, rows, seq, seed)):
+        batch = SH.shard_batch(batch, mesh, device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with logical_rules(mesh), C.no_functional_collectives():
+            model, opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rec[f"mixer/{arch}/loss/{k}"] = np.asarray(float(met["loss"]))
+        rec[f"mixer/{arch}/grad_norm/{k}"] = np.asarray(
+            float(met["grad_norm"]))
+        if k == 0:
+            m_max = json.loads((ref / "m_max.json").read_text())
+            rec[f"mixer/{arch}/grad_rel_err"] = np.asarray([
+                blocks_err(opt["m"][n],
+                           np.load(ref / f"m.{n}.npy", mmap_mode="r"), mesh,
+                           max(m_max[n], 1e-30)) for n in named])
+    rec[f"mixer/{arch}/step_ms"] = np.asarray(ms)
+    del model, opt, named
+    release()
 
 
 def splitk_inputs(seed: int, device):
@@ -5219,6 +5558,16 @@ def tp_phase(seed: int, device) -> dict:
     cfg, ocfg = tp_config(), AdamWConfig(**TP_OPT)
     torch.cuda.reset_peak_memory_stats()
     ref = tp_reference(cfg, ocfg, seed, device, out_dir)
+    pred = tp_prediction(cfg, ocfg)
+    log(f"13.1 dry-run of the step at {TP_MESH} on a fake group of "
+        f"{TP_RANKS} over the meta device: {pred['pred/seconds']:.1f} s")
+    serve_ref = serve_reference(seed, device, out_dir)
+    mixer_refs = {}
+    for cell in MIXER_CELLS:
+        log(f"13.6 {cell[0]}: full width, {cell[2]}, float32, "
+            f"{cell[3]} x {cell[4]} tokens, {MIXER_STEPS} steps on "
+            f"{TP_MESH}")
+        mixer_refs[cell[0]] = mixer_reference(cell, seed, device, out_dir)
     t_ref = time.perf_counter() - t0
     log(f"phase 13 single process done at {t_ref:.1f} s")
     ts = time.perf_counter()
@@ -5252,6 +5601,21 @@ def tp_phase(seed: int, device) -> dict:
     for r, rec in enumerate(recs):
         check(not rec["counts"].any(),
               f"phase 13, rank {r}: a kernel or plain version launched")
+    # 13.1's count against the dry-run's
+    for r, rec in enumerate(recs):
+        for k in ("flops", "bytes", "kinds", "nbytes", "groups"):
+            check(np.array_equal(rec[f"count/{k}"], pred[f"pred/{k}"]),
+                  f"13.1: rank {r}'s count ({k}) is not the dry-run's: "
+                  f"{rec[f'count/{k}'].ravel().tolist()[:8]} against "
+                  f"{pred[f'pred/{k}'].ravel().tolist()[:8]}")
+    kinds = [str(x) for x in pred["pred/kinds"]]
+    counted = dict(
+        flops=int(pred["pred/flops"]), bytes=int(pred["pred/bytes"]),
+        collectives={k: kinds.count(k) for k in sorted(set(kinds))},
+        collective_bytes=int(pred["pred/nbytes"].sum()),
+        equal_on_ranks=TP_RANKS, dryrun_s=pred["pred/seconds"],
+        step=TP_COUNT_STEP + 1)
+    log(json.dumps({"sharded_count": counted, "card": card}))
     share = [int(r["bytes_local"]) / ref["bytes"] for r in recs]
     check(max(share) < 0.3, f"13.1: a rank stores {max(share)} of the "
           "single process's parameter and moment bytes")
@@ -5362,6 +5726,56 @@ def tp_phase(seed: int, device) -> dict:
                    rank_restore_s=[float(r["restore_s"]) for r in recs[:2]],
                    parent_restore_s=parent_restore_s, bit_equal=True)
     log(json.dumps({"resharding_restore": restore, "card": card}))
+    # 13.5
+    logit_err = max(float(r["serve/logit_err"].max()) for r in recs)
+    cache_err = max(max(json.loads(str(r["serve/cache_err"])).values())
+                    for r in recs)
+    check(logit_err < TP_SERVE_TOL, f"13.5: sharded logits are {logit_err} of "
+          f"the largest from the single process's (>= {TP_SERVE_TOL})")
+    check(cache_err < TP_SERVE_TOL, f"13.5: a cache block is {cache_err} of "
+          f"its leaf's largest from its slice (>= {TP_SERVE_TOL})")
+    serve = dict(
+        config=cfg.name, layers=TP_LAYERS, mesh=list(TP_MESH),
+        rows=TP_SERVE_ROWS, prompt=TP_SERVE_PROMPT,
+        decode_steps=TP_SERVE_DECODE,
+        cache=TP_SERVE_CACHE, dtype="float32", tol=TP_SERVE_TOL,
+        logit_rel_err=logit_err, cache_rel_err=cache_err,
+        rank_cache_block=recs[0]["serve/cache_block"].tolist(),
+        single_prefill_ms=serve_ref["prefill_ms"],
+        single_decode_median_ms=statistics.median(serve_ref["decode_ms"]),
+        rank_prefill_ms=[float(r["serve/prefill_ms"]) for r in recs],
+        rank_decode_median_ms=[statistics.median(
+            r["serve/decode_ms"].tolist()) for r in recs],
+        label=RANKS_LABEL.format(r=TP_RANKS))
+    log(json.dumps({"sharded_decode": serve, "card": card}))
+    # 13.6
+    mixers = {}
+    for arch, _, cut, rows, seq in MIXER_CELLS:
+        mr = mixer_refs[arch]
+        l_err = max(abs(float(r[f"mixer/{arch}/loss/{k}"]) - mr["loss"][k])
+                    for r in recs for k in range(MIXER_STEPS))
+        g_err = max(abs(float(r[f"mixer/{arch}/grad_norm/{k}"])
+                        - mr["grad_norm"][k]) / mr["grad_norm"][k]
+                    for r in recs for k in range(MIXER_STEPS))
+        m_err = max(float(r[f"mixer/{arch}/grad_rel_err"].max())
+                    for r in recs)
+        check(l_err < TP_LOSS_TOL, f"13.6 {arch}: the sharded loss is "
+              f"{l_err} from the single process's (>= {TP_LOSS_TOL})")
+        check(g_err < TP_GNORM_RTOL, f"13.6 {arch}: a sharded gradient "
+              f"norm is {g_err} of the single process's from it "
+              f"(>= {TP_GNORM_RTOL})")
+        check(m_err < TP_GRAD_RTOL, f"13.6 {arch}: a first moment after "
+              f"step 1 is {m_err} of its largest from the single "
+              f"process's (>= {TP_GRAD_RTOL})")
+        mixers[arch] = dict(
+            cut=cut, params=mr["params"], rows=rows, tokens=seq,
+            steps=MIXER_STEPS, loss_err=l_err, grad_norm_rel_err=g_err,
+            grad_rel_err=m_err, loss=mr["loss"], grad_norm=mr["grad_norm"],
+            single_step_ms=mr["step_ms"],
+            rank_step_ms=[r[f"mixer/{arch}/step_ms"].tolist()
+                          for r in recs])
+        log(json.dumps({"sharded_mixer": {arch: mixers[arch]},
+                        "card": card}))
     counts = read_counts()
     check(not any(counts.values()),
           f"phase 13 launched a kernel or a plain version: {counts}")
@@ -5370,8 +5784,12 @@ def tp_phase(seed: int, device) -> dict:
     log(f"phase 13 done in {elapsed:.1f} s ({card}; single process "
         f"{t_ref:.1f} s, spawn of {TP_RANKS} ranks {spawn_s:.1f} s, their "
         f"legs {[round(float(r['seconds']), 1) for r in recs]} s)")
+    if elapsed > TP_BUDGET_S:
+        log(f"phase 13 took {elapsed:.1f} s, past its budget of "
+            f"{TP_BUDGET_S} s")
     return dict(card=card, train=train, split_k=splitk, pmean=pmean,
-                restore=restore, spawn_s=spawn_s, single_s=t_ref,
+                restore=restore, count=counted, serve=serve, mixers=mixers,
+                spawn_s=spawn_s, single_s=t_ref,
                 rank_seconds=[float(r["seconds"]) for r in recs],
                 elapsed_s=elapsed)
 

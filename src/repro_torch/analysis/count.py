@@ -50,6 +50,22 @@ what the card's memory moves (no counter of the card is read), so the
 bytes are a model of the traffic, held to hand counts in the tests.  A step that reads a
 tensor's value on the host (``.item()``, ``nonzero``) cannot run on meta
 tensors and raises.
+
+Sharded (DTensor parameters and activations, `repro_torch.parallel`),
+the mode counts this rank's local ops: it lets a DTensor op fall through
+to DTensor's own handler and counts the ops that handler runs on the
+blocks, so ``flops`` and ``bytes`` are per device, as JAX's post-SPMD
+module's (the ops DTensor's sharding propagation runs on fake tensors of
+the global shapes are not the step's and are left out).  The collectives are not ops of the count: their buffers count
+toward neither ``bytes`` nor ``ops`` (the copy `parallel.comm` makes of
+an operand, and the empty result it allocates, do; the copies a backend
+makes inside a collective, such as gloo's, do not), and each is a
+`parallel.comm.Record` in ``collectives``, which
+`analysis.roofline.collective_stats` turns into wire bytes.  An op of
+DTensor's functional collectives raises, as under
+`parallel.comm.no_functional_collectives`.  On a fake
+process group (`launch.mesh.fake_process_group`) over the meta device
+the same step gives rank 0's count of a real group's.
 """
 
 from __future__ import annotations
@@ -60,8 +76,12 @@ import threading
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.parallel import comm
 
 ALLOC_ROUND = 512   # the CUDA caching allocator's block granularity
 
@@ -71,9 +91,12 @@ def _rounded(nbytes: int) -> int:
 
 
 def _tensors(tree, out=None) -> list:
-    """The tensors in nested lists, tuples and dicts, in order."""
+    """The tensors in nested lists, tuples and dicts, in order (a
+    DTensor's block)."""
     out = [] if out is None else out
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, DTensor):
+        out.append(tree._local_tensor)
+    elif isinstance(tree, torch.Tensor):
         out.append(tree)
     elif isinstance(tree, (list, tuple)):
         for x in tree:
@@ -162,6 +185,8 @@ class Count:
     peak_bytes: int       # arguments + the most the step held besides
     ops: int              # aten ops dispatched (views included)
     by_op: dict           # op name -> times dispatched
+    collectives: list = dataclasses.field(default_factory=list)
+    # ^ `parallel.comm.Record` of each collective, in order
 
     @property
     def temp_bytes(self) -> int:
@@ -212,9 +237,25 @@ class _StepCounter(TorchDispatchMode):
                 self.live -= size
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if comm.BUSY[0]:                 # inside a collective's backend
+            return func(*args, **(kwargs or {}))
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # count the ops on the blocks
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation runs an op on fake tensors of
+            # the global shapes to learn its output's: no work of the step
+            return func(*args, **(kwargs or {}))
+        if func.namespace in comm.FUNCTIONAL:
+            raise RuntimeError(f"{func} ran: a DTensor rule communicated "
+                               "where the step's collectives are "
+                               "parallel.comm's")
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func.namespace == "c10d":
+            return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in outs):
+            return out                   # a factory of those fake tensors
         if self.device is not None and not any(
                 t.device.type == self.device for t in ins + outs):
             return out
@@ -248,7 +289,7 @@ def count(fn, arguments=(), live: bool = True, device: str | None = None):
     counter = _StepCounter(live, device)
     arg_bytes = counter.hold(_tensors(arguments)) if live else 0
     before = set(counter._refs)
-    with counter:
+    with comm.recording() as records, counter:
         out = fn()
     made = {_key(t): t for t in _tensors(out) if _key(t) not in before}
     out_bytes = sum(_rounded(t.untyped_storage().nbytes())
@@ -256,4 +297,5 @@ def count(fn, arguments=(), live: bool = True, device: str | None = None):
     return out, Count(flops=int(counter.flops),
                       bytes=int(counter.bytes), argument_bytes=arg_bytes,
                       output_bytes=out_bytes, peak_bytes=counter.peak,
-                      ops=counter.ops, by_op=counter.by_op)
+                      ops=counter.ops, by_op=counter.by_op,
+                      collectives=list(records))

@@ -6,12 +6,22 @@ Every quantity is per card, as in the JAX module:
   memory term     = bytes accessed / HBM bytes/s
   collective term = wire bytes / NVLink bytes/s
 
-The constants are the card's row (`launch.mesh.card`), not a TPU's.  The
-port runs on one card, so a step has no collective and its term is 0;
-`no_collectives` gives the JAX record's ``collectives`` schema with
-zeros.  JAX's ``collective_stats`` (an HLO parser) has no counterpart:
-the port has no HLO, and counting ``torch.distributed`` collectives
-comes with the multi-card slice (ROADMAP Queue 1 item 3).
+The constants are the card's row (`launch.mesh.card`), not a TPU's.
+`collective_stats` is JAX's with the same ring formulas and output
+schema, read from `parallel.comm`'s records of the step instead of from
+HLO text (a record's bytes are what JAX reads off the HLO line: an
+all-reduce's operand, an all-gather's result, a reduce-scatter's
+block):
+
+  all-reduce        2 * bytes * (n-1)/n
+  all-gather            bytes * (n-1)/n
+  reduce-scatter        bytes * (n-1)
+  all-to-all            bytes * (n-1)/n
+  collective-permute    bytes
+
+A record of another kind (the checkpoint's ``gather``) is not counted:
+JAX's parser knows only these five.  A step on one card has no
+collective: `no_collectives` is that case.
 """
 
 from __future__ import annotations
@@ -26,9 +36,32 @@ COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
 
 def no_collectives() -> dict:
     """The JAX record's ``collectives`` for a program with none."""
-    return {"wire_bytes": dict.fromkeys(COLLECTIVE_KINDS, 0.0),
-            "counts": dict.fromkeys(COLLECTIVE_KINDS, 0),
-            "total_wire_bytes": 0.0}
+    return collective_stats(())
+
+
+def _wire(kind: str, nbytes: int, n: int) -> float:
+    if kind == "all-reduce":
+        return 2 * nbytes * (n - 1) / n
+    if kind in ("all-gather", "all-to-all"):
+        return nbytes * (n - 1) / n
+    if kind == "reduce-scatter":
+        return nbytes * (n - 1)
+    return float(nbytes)
+
+
+def collective_stats(records) -> dict:
+    """Per-device wire bytes by collective kind of ``records`` (each with
+    ``kind``, ``nbytes`` and ``group_size``, `parallel.comm.Record`), in
+    JAX's schema."""
+    out = dict.fromkeys(COLLECTIVE_KINDS, 0.0)
+    counts = dict.fromkeys(COLLECTIVE_KINDS, 0)
+    for r in records:
+        if r.kind not in out:
+            continue
+        out[r.kind] += _wire(r.kind, r.nbytes, r.group_size)
+        counts[r.kind] += 1
+    return {"wire_bytes": out, "counts": counts,
+            "total_wire_bytes": sum(out.values())}
 
 
 @dataclass

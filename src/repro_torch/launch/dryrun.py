@@ -1,5 +1,5 @@
-"""Dry-run on one card (port of ``repro.launch.dryrun``): count every (arch ×
-shape) cell's step on the meta device and record its memory, cost and
+"""Dry-run (port of ``repro.launch.dryrun``): count every (arch × shape ×
+mesh) cell's step on the meta device and record its memory, cost and
 roofline in the JAX record's schema.
 
 What JAX does: it lowers each cell against ``ShapeDtypeStruct`` stand-ins
@@ -21,17 +21,38 @@ accessed`` the eager program's per-op traffic (`analysis.count`), the
 memory's ``peak_bytes`` arguments plus the step's temporaries, as
 ``torch.cuda.max_memory_allocated`` reads them.  The constants are the
 card's row (`launch.mesh.card`): the card present, or ``--card NAME``
-where there is none; with neither the command raises.  Only the mesh
-``card1`` (one card) exists: ``pod1`` / ``pod2`` need the multi-card
-slice (ROADMAP Queue 1 item 3) and raise.  ``lower_s`` is the host
-seconds of building the meta model and inputs, ``compile_s`` those of
-the count.
+where there is none; with neither the command raises.  ``lower_s`` is
+the host seconds of building the meta model and inputs, ``compile_s``
+those of the count.
+
+Meshes: ``card1`` is one card.  ``pod1`` / ``pod2`` are JAX's production
+meshes (`launch.mesh.make_production_mesh`: 16 x 16 ("data", "model"),
+2 x 16 x 16 ("pod", "data", "model")) over a fake process group of 256 /
+512 ranks of which this process is rank 0
+(`launch.mesh.fake_process_group`): a CPU mesh whose blocks lie on the
+meta device (DTensor's sharding propagation asks a meta mesh for a
+device count it has not).  The parameters, optimizer state,
+batch and caches are placed by JAX's specs (`place`), so each leaf is
+rank 0's block, and the step runs under ``logical_rules`` with DTensor's
+own collectives forbidden (the count raises on one).
+The count is rank 0's: ``flops``, ``bytes accessed`` and the memory are
+per device, as JAX's post-SPMD numbers are, and ``collectives`` is
+`analysis.roofline.collective_stats` of the step's `parallel.comm`
+records, so the roofline's collective term is wire bytes over the card
+row's ``ICI_BW`` (NVLink's), as JAX puts all of them over one ICI
+bandwidth.  A "pod" axis across hosts would run over the network, not
+NVLink; the row has no second bandwidth, as JAX's has none.
+`mesh_count` is the same count on any mesh (a host mesh of a real group
+too), which is how the tests and ``chip_smoke.py`` hold the dry-run to
+real ranks.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh card1 \\
       --card "NVIDIA H100 80GB HBM3" --out results/dryrun
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_8b \\
       --shape decode_32k --batch 8 --card "NVIDIA H100 80GB HBM3"
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_8b \\
+      --shape decode_32k --mesh pod1 --card "NVIDIA H100 80GB HBM3"
   PYTHONPATH=src python -m repro_torch.analysis.report   # the tables
 """
 
@@ -59,31 +80,31 @@ from repro_torch.models.registry import (
     shape_applicable,
 )
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel import shardings as SH
+from repro_torch.parallel.ax import logical_rules
 from repro_torch.train import make_train_step
 
-MESHES = {"card1": 1}
+MESHES = {"card1": 1, "pod1": 256, "pod2": 512}
 TRAIN_OPT = AdamWConfig(state_dtype="bfloat16")
 
 
 def _mesh_chips(mesh: str) -> int:
     if mesh not in MESHES:
-        raise NotImplementedError(
-            f"mesh {mesh!r} needs more than one card; the port's meshes "
-            f"come with the multi-card slice (ROADMAP.md, Queue 1 item 3)")
+        raise ValueError(f"unknown mesh {mesh!r}; known: {sorted(MESHES)}")
     return MESHES[mesh]
 
 
 def step_call(cfg, kind: str, model, inputs: dict, opt: dict | None = None,
-              accum_steps: int = 1):
+              accum_steps: int = 1, ocfg: AdamWConfig = TRAIN_OPT):
     """The port's step of ``kind`` on ``model`` and ``inputs`` (an
     `input_specs` dict, on any device); returns (a closure running it,
     the tensors alive before it: parameters, buffers, optimizer state,
     inputs).  A train step takes ``opt`` (from `adamw_init` with
-    `TRAIN_OPT`)."""
+    ``ocfg``)."""
     m = api(cfg)
     held = [list(model.parameters()), list(model.buffers()), inputs]
     if kind == "train":
-        step = make_train_step(cfg, TRAIN_OPT, accum_steps=accum_steps)
+        step = make_train_step(cfg, ocfg, accum_steps=accum_steps)
         return (lambda: step(model, opt, inputs)), held + [opt]
     if kind == "prefill":
         caches = inputs["caches"]
@@ -135,6 +156,44 @@ def smoke_inputs(cfg, kind: str, device, rows: int, seq: int,
     return model, inputs, opt
 
 
+def place(kind: str, model, inputs: dict, mesh,
+          ocfg: AdamWConfig = TRAIN_OPT):
+    """``model``'s parameters placed by ``param_specs`` on ``mesh`` (in
+    place), and (the inputs placed: a batch leaf of rank >= 2 by
+    ``batch_spec``, the caches by ``cache_specs``, the rest whole; a
+    train step's optimizer state from `adamw_init` with ``ocfg`` over the
+    placed parameters, so laid out by ``opt_specs``, else None).  The
+    blocks stay on the model's device (meta on a CPU mesh for the
+    dry-run)."""
+    SH.shard_params(model, SH.to_named(SH.param_specs(model), mesh))
+    device = model.device
+    out = {}
+    for k, v in inputs.items():
+        if k == "caches":
+            out[k] = SH.shard_state(v, SH.to_named(SH.cache_specs(v, mesh),
+                                                   mesh), device)
+        else:
+            out.update(SH.shard_batch({k: v}, mesh, device))
+    opt = (adamw_init(ocfg, dict(model.named_parameters()))
+           if kind == "train" else None)
+    return out, opt
+
+
+def mesh_count(cfg, kind: str, model, inputs: dict, mesh,
+               ocfg: AdamWConfig = TRAIN_OPT, accum_steps: int = 1,
+               live: bool = True):
+    """`place` the step on ``mesh`` and count it on this rank
+    (`analysis.count.count` over the mesh's device type) under
+    ``logical_rules``, with DTensor's own collectives forbidden.  Returns
+    the `Count`, its ``collectives`` the step's `parallel.comm`
+    records."""
+    inputs, opt = place(kind, model, inputs, mesh, ocfg)
+    fn, held = step_call(cfg, kind, model, inputs, opt, accum_steps, ocfg)
+    with logical_rules(mesh):        # the count forbids DTensor's own
+        _, c = count(fn, held, live=live, device=model.device.type)
+    return c
+
+
 def _skipped(arch, shape_name, mesh, why):
     return {"arch": arch, "shape": shape_name, "mesh": mesh,
             "status": "skipped", "reason": why}
@@ -154,25 +213,20 @@ def lower_cell(arch: str, shape_name: str, mesh: str = "card1",
         return _skipped(arch, shape_name, mesh, why), None
 
     n_chips = _mesh_chips(mesh)
-    t0 = time.time()
-    kind, specs = input_specs(cfg, shape_name, batch_override)
-    seq, gbatch, _ = SHAPES[shape_name]
-    b = batch_override or gbatch
-    model = model_class(cfg)(cfg, device="meta", init=False)
-    n_params = model.param_count()
-    n_active = R.active_params(cfg, n_params)
-    opt = (adamw_init(TRAIN_OPT, dict(model.named_parameters()))
-           if kind == "train" else None)
-    fn, held = step_call(cfg, kind, model, specs, opt, accum_steps)
-    n_tokens = b if kind == "decode" else b * seq
-    t_lower = time.time() - t0
-    t0 = time.time()
-    _, c = count(fn, held, device="meta")
-    t_count = time.time() - t0
-
+    if mesh == "card1":
+        rec, c = _count_cell(cfg, shape_name, None, accum_steps,
+                             batch_override)
+    else:
+        with M.fake_process_group(n_chips):
+            dm = M.make_production_mesh(multi_pod=mesh == "pod2",
+                                        device="cpu")
+            rec, c = _count_cell(cfg, shape_name, dm, accum_steps,
+                                 batch_override)
+    kind, n_tokens = rec["step_kind"], rec["n_tokens_global"]
     cost = {"flops": float(c.flops), "bytes accessed": float(c.bytes)}
-    coll = R.no_collectives()
-    mf = R.model_flops(cfg, kind, n_tokens, n_params, n_active)
+    coll = R.collective_stats(c.collectives)
+    mf = R.model_flops(cfg, kind, n_tokens, rec["n_params"],
+                       rec["n_active_params"])
     rf = R.roofline_terms(cost, coll, mf, n_chips, spec)
     rec = {
         "arch": arch,
@@ -182,12 +236,9 @@ def lower_cell(arch: str, shape_name: str, mesh: str = "card1",
         "step_kind": kind,
         "card": spec.name,
         "n_chips": n_chips,
-        "n_params": n_params,
-        "n_active_params": n_active,
-        "n_tokens_global": n_tokens,
-        "batch": b,
-        "lower_s": round(t_lower, 2),
-        "compile_s": round(t_count, 2),
+        **{k: rec[k] for k in ("n_params", "n_active_params",
+                               "n_tokens_global", "batch", "lower_s",
+                               "compile_s")},
         "ops": c.ops,
         "memory": {
             "argument_size_bytes": c.argument_bytes,
@@ -201,6 +252,36 @@ def lower_cell(arch: str, shape_name: str, mesh: str = "card1",
         "roofline": rf.as_dict(),
         "accum_steps": accum_steps,
     }
+    return rec, c
+
+
+def _count_cell(cfg, shape_name: str, mesh, accum_steps: int,
+                batch_override: int | None):
+    """(the record's step fields, the `Count`) of a cell on the meta
+    device: on one card with ``mesh`` None, else placed on ``mesh``."""
+    t0 = time.time()
+    kind, specs = input_specs(cfg, shape_name, batch_override)
+    seq, gbatch, _ = SHAPES[shape_name]
+    b = batch_override or gbatch
+    model = model_class(cfg)(cfg, device="meta", init=False)
+    n_params = model.param_count()
+    rec = {"step_kind": kind, "n_params": n_params,
+           "n_active_params": R.active_params(cfg, n_params),
+           "n_tokens_global": b if kind == "decode" else b * seq,
+           "batch": b}
+    if mesh is None:
+        opt = (adamw_init(TRAIN_OPT, dict(model.named_parameters()))
+               if kind == "train" else None)
+        fn, held = step_call(cfg, kind, model, specs, opt, accum_steps)
+        rec["lower_s"] = round(time.time() - t0, 2)
+        t0 = time.time()
+        _, c = count(fn, held, device="meta")
+    else:
+        rec["lower_s"] = round(time.time() - t0, 2)
+        t0 = time.time()
+        c = mesh_count(cfg, kind, model, specs, mesh,
+                       accum_steps=accum_steps)
+    rec["compile_s"] = round(time.time() - t0, 2)
     return rec, c
 
 

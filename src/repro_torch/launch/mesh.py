@@ -15,20 +15,26 @@ no sparsity, at the card's full power limit):
 
 The meshes are ``torch.distributed`` device meshes over the ranks of the
 default process group, under the JAX module's axis names:
-`make_forest_mesh` (the DeltaForest's 1-D "shards" mesh) and
-`make_host_mesh` (a ("data", "model") mesh).  Without a process group
+`make_production_mesh` (JAX's two: 16 x 16 ("data", "model"), or 2 x 16
+x 16 ("pod", "data", "model") with ``multi_pod``), `make_forest_mesh`
+(the DeltaForest's 1-D "shards" mesh) and `make_host_mesh` (a ("data",
+"model") mesh).  Without a process group
 each gives a size-1 mesh.  A mesh's tensors live on the card unless the
 caller names another device (`core.deltatree.resolve_device`), whatever
 the backend.  The forest itself needs only the mesh's size,
 `forest_ranks`, which is arithmetic and makes no group.
 `start_process_group` starts the group with the backend its caller names
 (or ``torchrun``'s environment gives); nothing here picks one.
-``make_production_mesh`` and the pod meshes are not ported yet.  The
-collectives over a mesh's groups are `parallel.comm`'s.
+`fake_process_group` is the dry-run's: a group of any size whose
+collectives move nothing, this process its rank 0, so a production mesh
+can be built on the meta device and a step's rank-0 ops counted
+(`launch.dryrun`).  The collectives over a mesh's groups are
+`parallel.comm`'s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -148,6 +154,42 @@ def make_host_mesh(data: int = 1, model: int = 1, *,
         raise ValueError(f"a {data} x {model} mesh needs {data * model} "
                          f"ranks; the process group has {w}")
     return _mesh((data, model), ("data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """JAX's production mesh: (16, 16) ("data", "model"), or (2, 16, 16)
+    ("pod", "data", "model") with ``multi_pod``, over the first 256 / 512
+    ranks of the default group (a `fake_process_group` of that size for
+    the dry-run), on ``device``'s type."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for d in shape:
+        n *= d
+    if n > world()[1]:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks; the "
+                         f"process group has {world()[1]}")
+    return _mesh(shape, names, device)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """The default group as ``world_size`` ranks of torch's fake backend,
+    this process rank 0, for the block; destroyed on exit.  Its
+    collectives return buffers of the right shapes and move nothing (on
+    the meta device they touch no memory).  Raises where a group is
+    running already."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is running already")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def forest_ranks(num_shards: int, world_size: int) -> int:

@@ -10,12 +10,17 @@ is ``(named parameters, {"m", "v", "step"})`` under the port's parameter
 names, saved as ``step % ckpt_every == 0``, at SIGTERM and at the last
 step with ``extra={"data_step": step + 1}``; ``--resume`` restarts from
 the latest one, so a run killed and resumed equals one run through, bit
-for bit.  A mesh (``--data`` / ``--model`` > 1) needs more than one card
-and raises.
+for bit.  A mesh (``--data`` / ``--model`` > 1) takes a process group of
+data x model ranks (under ``torchrun`` with ``--backend``, or one
+started first) and runs any family the model runs: the step's family is
+the config's, with no list of its own here.
 
-Usage (smoke scale, on the CPU):
+Usage (smoke scale, on the CPU; the second on 4 gloo ranks):
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b \\
       --smoke --device cpu --steps 20 --batch 8 --seq 128 --ckpt-dir DIR
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch whisper_base --smoke --device cpu --data 2 --model 2 \\
+      --backend gloo --steps 8 --batch 8 --seq 32
 
 ``main`` returns the model.
 """

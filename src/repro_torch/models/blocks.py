@@ -12,6 +12,13 @@ written in place: ``{"k", "v"}`` (B, S, KVH, HD) for attention,
 norm's output and each mixer / FFN output before its residual add (the
 edges of the tensor-parallel region, where the gradient / the output is
 a partial sum over "model"); without rules every one is a no-op.
+
+Sharded prefill and decode take DTensor activations and caches placed
+by ``cache_specs``: an attention or MLA cache is sharded along its
+length on "model" and each rank writes its block (`attention.fill_block`,
+`attention.decode_sharded`, `mla.mla_decode`), where JAX constrains
+the decode's caches to ("batch", "decode_seq"); an SSD cache's state
+holds the rank's heads (`mamba2.sharded_step`).
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from repro_torch.models.layers.attention import (
     attn_out,
     attn_train,
     decode_attention,
+    decode_sharded,
+    fill_block,
     qkv_proj,
 )
 from repro_torch.models.layers.basic import RMSNorm, SwiGLU, mlp_apply
@@ -94,10 +103,6 @@ def ffn_residual(layer: Block, cfg: ModelConfig,
 def block_train(layer: Block, cfg: ModelConfig, x, positions,
                 causal: bool = True):
     """The block over a whole sequence, no cache."""
-    if isinstance(x, DTensor) and (layer.kinds[0] == "ssm" or cfg.mla):
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded step runs attention mixers only; "
-            "MLA and the SSD over a mesh are not ported (ROADMAP Queue 1)")
     x = constrain(x, *_BSE)
     h = constrain(layer.norm1(x), *_BSE)
     if layer.kinds[0] == "ssm":
@@ -134,21 +139,32 @@ def block_prefill(layer: Block, cfg: ModelConfig, x, positions, cache):
     attention or MLA cache in [0, S); an SSD cache's state and conv
     inputs after the prompt).  Returns (x, cache)."""
     s = x.shape[1]
-    h = layer.norm1(x)
-    if layer.kinds[0] == "ssm":
+    sharded = isinstance(x, DTensor)
+    h = constrain(layer.norm1(x), *_BSE)
+    if layer.kinds[0] == "ssm" and sharded:
+        y = m2.sharded_step(layer.mixer, cfg, h, cache, decode=False)
+    elif layer.kinds[0] == "ssm":
         y, state, conv = m2.mamba2_prefill(layer.mixer, cfg, h)
         cache["state"].copy_(state)
         cache["conv"].copy_(conv)
     elif cfg.mla:
         y, ckv, krope = mla_prefill(layer.mixer, cfg, h, positions)
-        cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
-        cache["krope"][:, :s] = krope.to(cache["krope"].dtype)
+        if sharded:
+            fill_block(cache["ckv"], ckv)
+            fill_block(cache["krope"], krope)
+        else:
+            cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+            cache["krope"][:, :s] = krope.to(cache["krope"].dtype)
     else:
         q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        if sharded:
+            fill_block(cache["k"], k)
+            fill_block(cache["v"], v)
+        else:
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
         y = attn_out(layer.mixer, attend(cfg, q, k, v))
-    return ffn_residual(layer, cfg, x + y), cache
+    return ffn_residual(layer, cfg, x + constrain(y, *_BSE)), cache
 
 
 def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
@@ -156,8 +172,10 @@ def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
     """Single-token step. x: (B,1,D); length: (B,) tokens already cached.
     Attention and MLA write the new K/V or latent into ``cache`` at
     ``length``; SSD replaces its state and conv inputs; all in place."""
-    h = layer.norm1(x)
-    if layer.kinds[0] == "ssm":
+    h = constrain(layer.norm1(x), *_BSE)
+    if layer.kinds[0] == "ssm" and isinstance(x, DTensor):
+        y = m2.sharded_step(layer.mixer, cfg, h, cache, decode=True)
+    elif layer.kinds[0] == "ssm":
         y, state, conv = m2.mamba2_decode(layer.mixer, cfg, h,
                                           cache["state"], cache["conv"])
         cache["state"].copy_(state)
@@ -165,6 +183,12 @@ def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
     elif cfg.mla:
         y, _, _ = mla_decode(layer.mixer, cfg, h, positions, cache["ckv"],
                              cache["krope"], length)
+    elif isinstance(x, DTensor):
+        # JAX constrains the caches to ("batch", "decode_seq"); here they
+        # are laid out so already, and split-K attends over their blocks
+        q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
+        y = attn_out(layer.mixer, decode_sharded(q, k, v, cache["k"],
+                                                 cache["v"], length))
     else:
         q, k, v = qkv_proj(layer.mixer, cfg, h, positions)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -174,4 +198,4 @@ def block_decode(layer: Block, cfg: ModelConfig, x, positions, cache,
         vc = constrain(cache["v"], "batch", "decode_seq", None, None)
         o = decode_attention(q, kc, vc, length + 1)
         y = attn_out(layer.mixer, o)
-    return ffn_residual(layer, cfg, x + y), cache
+    return ffn_residual(layer, cfg, x + constrain(y, *_BSE)), cache

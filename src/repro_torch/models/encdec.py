@@ -16,6 +16,16 @@ once by the prefill.  As in `transformer`, ``forward_train`` and
 encoder and each decoder layer is checkpointed (keeping only its inputs,
 whatever ``remat_policy`` says, as JAX's ``nothing_saveable`` does
 here).  ``unroll`` has no effect.
+
+Sharded (parameters by ``shard_params``, the batch and caches by
+``batch_spec`` / ``cache_specs``, under `parallel.ax.logical_rules`):
+the encoder, self- and cross-attention run as the decoder blocks' do,
+with `parallel.ax.constrain` on each norm's and each sub-layer's output;
+the caches ``k`` / ``v`` and ``ck`` / ``cv`` are sharded along their
+length on "model" (where it splits), the prefill writing each rank's
+block (`attention.fill_block`) and the decode attending over the blocks
+by split-K (`attention.decode_sharded`), the cross-attention over every
+encoder position.
 """
 
 from __future__ import annotations
@@ -28,11 +38,14 @@ from repro_torch.core.deltatree import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.attention import (
     Attention,
+    _attend_sharded,
     attend,
     attention_naive,
     attn_out,
     attn_train,
     decode_attention,
+    decode_sharded,
+    fill_block,
     qkv_proj,
 )
 from repro_torch.models.layers.basic import (
@@ -48,6 +61,9 @@ from repro_torch.models.transformer import (
     remat,
     xent,
 )
+from repro_torch.parallel.ax import constrain, gathered, split_heads
+
+_BSE = ("batch", "seq", "embed")
 
 
 class EncoderLayer(nn.Module):
@@ -79,22 +95,36 @@ class DecoderLayer(nn.Module):
 
 def _cross_kv(attn: Attention, cfg: ModelConfig, enc_out):
     """Cross-attention K/V (B, T_enc, KVH, HD) of the encoder output."""
-    b, t, _ = enc_out.shape
-    k = enc_out @ attn.wk
-    v = enc_out @ attn.wv
+    k = enc_out @ gathered(attn.wk)
+    v = enc_out @ gathered(attn.wv)
     if cfg.qkv_bias:
         k, v = k + attn.bk, v + attn.bv
-    return (k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim))
+    return split_heads(k, cfg.num_kv_heads), split_heads(v, cfg.num_kv_heads)
+
+
+def _cross_q(attn: Attention, cfg: ModelConfig, x):
+    q = x @ gathered(attn.wq)
+    if cfg.qkv_bias:
+        q = q + attn.bq
+    return split_heads(q, cfg.num_heads)
+
+
+def _naive_bidirectional(q, k, v):
+    return attention_naive(q, k, v, causal=False)
 
 
 def _cross_attn(attn: Attention, cfg: ModelConfig, x, k, v):
-    b, s, _ = x.shape
-    q = x @ attn.wq
-    if cfg.qkv_bias:
-        q = q + attn.bq
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    return attn_out(attn, attention_naive(q, k, v, causal=False))
+    q = _cross_q(attn, cfg, x)
+    if isinstance(q, DTensor):
+        o = _attend_sharded(cfg, q, k, v, False, fn=_naive_bidirectional)
+    else:
+        o = attention_naive(q, k, v, causal=False)
+    return attn_out(attn, o)
+
+
+def _sub(x, y):
+    """x plus a sub-layer's output, both constrained (no-ops unsharded)."""
+    return constrain(x + constrain(y, *_BSE), *_BSE)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -147,40 +177,48 @@ class EncDec(LanguageModel):
     def encode(self, frames) -> torch.Tensor:
         """frames (B, T_enc, D) stub embeddings -> the encoder output."""
         cfg = self.cfg
-        x = torch.as_tensor(frames, device=self.device).to(self.act_dtype)
+        if not isinstance(frames, DTensor):
+            frames = torch.as_tensor(frames, device=self.device)
+        x = constrain(frames.to(self.act_dtype), *_BSE)
         b, t, _ = x.shape
         positions = self._positions(b, t)
 
         def layer_fn(lp, x):
-            x = x + attn_train(lp.attn, cfg, lp.norm1(x), positions,
-                               causal=False)
-            return x + mlp_apply(lp.mlp, lp.norm2(x))
+            x = _sub(x, attn_train(lp.attn, cfg, constrain(lp.norm1(x), *_BSE),
+                                   positions, causal=False))
+            return _sub(x, mlp_apply(lp.mlp, constrain(lp.norm2(x), *_BSE)))
 
         on = cfg.remat and torch.is_grad_enabled()
         for lp in self.encoder:
             x = remat("nothing", layer_fn, lp, x) if on else layer_fn(lp, x)
         return self.enc_norm(x)
 
-    def _cross_and_mlp(self, lp: DecoderLayer, x, ck, cv):
-        x = x + _cross_attn(lp.cross_attn, self.cfg, lp.norm_x(x), ck, cv)
-        return x + mlp_apply(lp.mlp, lp.norm2(x))
+    def _cross_and_mlp(self, lp: DecoderLayer, x, ck, cv, layer=None):
+        """Cross-attention to ``ck`` / ``cv`` (the decode's L-stacked
+        sharded caches at ``layer`` where it is not None), then the MLP."""
+        if layer is None:
+            x = _sub(x, _cross_attn(lp.cross_attn, self.cfg,
+                                    constrain(lp.norm_x(x), *_BSE), ck, cv))
+        else:
+            q = _cross_q(lp.cross_attn, self.cfg,
+                         constrain(lp.norm_x(x), *_BSE))
+            o = decode_sharded(q, None, None, ck, cv, None, layer=layer)
+            x = _sub(x, attn_out(lp.cross_attn, o))
+        return _sub(x, mlp_apply(lp.mlp, constrain(lp.norm2(x), *_BSE)))
 
     # --------------------------------------------------------- training ---
 
     def forward_train(self, tokens, frames) -> torch.Tensor:
         """tokens (B, S), frames (B, T_enc, D) -> logits (B, S, V)."""
         cfg = self.cfg
-        if isinstance(self.embed.tok, DTensor):
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder over a mesh is not ported "
-                "(ROADMAP Queue 1)")
         enc_out = self.encode(frames)
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), *_BSE)
         positions = self._positions(*x.shape[:2])
 
         def layer_fn(lp, x, enc_out):
-            x = x + attn_train(lp.self_attn, cfg, lp.norm1(x), positions,
-                               causal=True)
+            x = _sub(x, attn_train(lp.self_attn, cfg,
+                                   constrain(lp.norm1(x), *_BSE), positions,
+                                   causal=True))
             ck, cv = _cross_kv(lp.cross_attn, cfg, enc_out)
             return self._cross_and_mlp(lp, x, ck, cv)
 
@@ -208,14 +246,20 @@ class EncDec(LanguageModel):
             raise ValueError(f"{enc_out.shape[1]} frames, but the caches "
                              f"hold {caches['ck'].shape[2]}")
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), *_BSE)
         s = x.shape[1]
         positions = self._positions(x.shape[0], s)
+        sharded = isinstance(x, DTensor)
         for li, lp in enumerate(self.decoder):
-            q, k, v = qkv_proj(lp.self_attn, cfg, lp.norm1(x), positions)
-            x = x + attn_out(lp.self_attn, attend(cfg, q, k, v))
+            q, k, v = qkv_proj(lp.self_attn, cfg,
+                               constrain(lp.norm1(x), *_BSE), positions)
+            x = _sub(x, attn_out(lp.self_attn, attend(cfg, q, k, v)))
             ck, cv = _cross_kv(lp.cross_attn, cfg, enc_out)
             x = self._cross_and_mlp(lp, x, ck, cv)
+            if sharded:
+                for name, t in (("k", k), ("v", v), ("ck", ck), ("cv", cv)):
+                    fill_block(caches[name], t, layer=li)
+                continue
             caches["k"][li, :, :s] = k.to(caches["k"].dtype)
             caches["v"][li, :, :s] = v.to(caches["v"].dtype)
             caches["ck"][li] = ck.to(caches["ck"].dtype)
@@ -233,8 +277,16 @@ class EncDec(LanguageModel):
         rows = torch.arange(x.shape[0], device=self.device)
         ln = length.long()
         for li, lp in enumerate(self.decoder):
+            q, k, v = qkv_proj(lp.self_attn, cfg,
+                               constrain(lp.norm1(x), *_BSE), positions)
+            if isinstance(x, DTensor):
+                o = decode_sharded(q, k, v, caches["k"], caches["v"], ln,
+                                   layer=li)
+                x = _sub(x, attn_out(lp.self_attn, o))
+                x = self._cross_and_mlp(lp, x, caches["ck"], caches["cv"],
+                                        layer=li)
+                continue
             kc, vc = caches["k"][li], caches["v"][li]
-            q, k, v = qkv_proj(lp.self_attn, cfg, lp.norm1(x), positions)
             kc[rows, ln] = k[:, 0].to(kc.dtype)
             vc[rows, ln] = v[:, 0].to(vc.dtype)
             o = decode_attention(q, kc, vc, ln + 1)

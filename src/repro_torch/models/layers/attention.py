@@ -10,8 +10,15 @@ dense-cache oracle the serve path is held against.
 Sharded (DTensor activations, `repro_torch.parallel`): the projections
 read their weights through `parallel.ax.gathered`, and `attend` runs the
 same attention on each rank's rows and heads (`parallel.ax.local_map`):
-heads on "model" where the query and KV head counts both split, else
-every head on every rank.
+the query heads on "model" where they split, each rank with the KV
+heads its query heads read (the KV heads gathered first where they are
+fewer than the ranks, `ax.split_heads`), else every head on every rank.
+A cache sharded along its length (`shardings.cache_specs`) is written
+by `fill_block` (a prompt: each rank its block of positions) and
+`decode_sharded` (one token: a masked write on the rank whose block
+holds the position, then split-K attention over the blocks,
+`parallel.decode_attn.block_decode_attention`); both run without
+autograd, on each rank's blocks.
 """
 
 from __future__ import annotations
@@ -24,7 +31,20 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import normal_param, rope_apply
-from repro_torch.parallel.ax import gathered, local_map
+from repro_torch.parallel.ax import (
+    block,
+    gathered,
+    local_map,
+    local_offset,
+    merge_heads,
+    mesh_shape,
+    redistribute,
+    rows_view,
+    shard_groups,
+    split_heads,
+    wrap,
+)
+from repro_torch.parallel.decode_attn import block_decode_attention
 
 NEG_INF = -1e30
 
@@ -52,16 +72,13 @@ class Attention(nn.Module):
 
 def qkv_proj(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, rope: bool = True):
-    b, s, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
     q = x @ gathered(attn.wq)
     k = x @ gathered(attn.wk)
     v = x @ gathered(attn.wv)
     if cfg.qkv_bias:
         q, k, v = q + attn.bq, k + attn.bk, v + attn.bv
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    q, k, v = split_heads(q, h), split_heads(k, kvh), split_heads(v, kvh)
     if rope:
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
@@ -183,26 +200,46 @@ def attend(cfg: ModelConfig, q, k, v, causal: bool = True):
     return attention_naive(q, k, v, causal=causal)
 
 
-def _attend_sharded(cfg: ModelConfig, q, k, v, causal: bool):
-    """`attend` on each rank's block: rows as the batch lies, heads on the
-    mesh dimensions that shard the query heads where both head counts
-    split there, whole elsewhere."""
+def _attend_sharded(cfg: ModelConfig, q, k, v, causal: bool, fn=None):
+    """``fn`` (`attend` by default) on each rank's block: rows as the
+    batch lies; the query heads on the mesh dimension that shards them
+    where they split there (one dimension at most), with the KV heads
+    they read: sharded alike where the KV heads split too, else cut
+    from every KV head where each rank's query heads fall in whole
+    groups or inside one; every head elsewhere."""
     mesh = q.device_mesh
-    views = []
-    for p, n in zip(q.placements, mesh.mesh.shape):
+    fn = fn or (lambda q, k, v: attend(cfg, q, k, v, causal))
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    qv, kv = [], []
+    cut = None
+    for d, (p, n) in enumerate(zip(q.placements, mesh_shape(mesh))):
+        hq = h // n
         if p == Shard(0):
-            views.append(p)
-        elif (p == Shard(2) and q.shape[2] % n == 0
-              and k.shape[2] % n == 0):
-            views.append(p)
+            qv.append(p)
+            kv.append(p)
+        elif p == Shard(2) and h % n == 0 and cut is None and (
+                kvh % n == 0 or hq % g == 0 or g % hq == 0):
+            qv.append(p)
+            if kvh % n == 0:
+                kv.append(p)
+                cut = ()
+            else:
+                kv.append(Replicate())
+                lo = (mesh.get_local_rank(d) * hq) // g
+                cut = (lo, max(hq // g, 1))
         else:
-            views.append(Replicate())
-    view = tuple(views)
+            qv.append(Replicate())
+            kv.append(Replicate())
+    qv, kv = tuple(qv), tuple(kv)
 
     def local(q, k, v):
-        return attend(cfg, q, k, v, causal)
+        if cut:
+            lo, n = cut
+            k, v = k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+        return fn(q, k, v)
 
-    return local_map(local, mesh, (q, k, v), (view, view, view), view, view)
+    return local_map(local, mesh, (q, k, v), (qv, kv, kv), qv, qv)
 
 
 def attn_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -213,5 +250,95 @@ def attn_train(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attn_out(attn: Attention, o_bshd: torch.Tensor) -> torch.Tensor:
-    b, s = o_bshd.shape[:2]
-    return o_bshd.reshape(b, s, -1) @ gathered(attn.wo)
+    return out_product(merge_heads(o_bshd), gathered(attn.wo))
+
+
+def out_product(o, w):
+    """``o @ w``; a DTensor ``o`` (B, S, F) first cut (no communication)
+    to the shards of F that ``w`` (F, D) holds, so the product is a
+    partial sum over those mesh dimensions."""
+    if isinstance(o, DTensor) and isinstance(w, DTensor):
+        want = tuple(Shard(2) if wp == Shard(0) else
+                     (op if op == Shard(0) else Replicate())
+                     for op, wp in zip(o.placements, w.placements))
+        o = redistribute(o, want)
+    return o @ w
+
+
+# ---------------------------------------------- caches sharded by length ---
+
+
+def _layer_block(cache, layer):
+    """(this rank's block, the placements and the global shape) of a cache
+    DTensor, or of its ``layer``-th entry (a leading layer axis, which
+    must not be sharded) when ``layer`` is not None."""
+    loc, pl, shape = cache._local_tensor, tuple(cache.placements), \
+        tuple(cache.shape)
+    if layer is None:
+        return loc, pl, shape
+    if any(p == Shard(0) for p in pl):
+        raise ValueError("a cache's layer axis is sharded")
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in pl)
+    return loc[layer], pl, shape[1:]
+
+
+def fill_block(cache, new, layer=None) -> None:
+    """Write ``new`` (a DTensor (B, T, ...)) into positions [0, T) of a
+    cache sharded along dimension 1, each rank its block's part, in
+    place."""
+    loc, pl, shape = _layer_block(cache, layer)
+    mesh = cache.device_mesh
+    nb = block(new, rows_view(pl))
+    off, s_loc = local_offset(mesh, pl, 1, shape[1])
+    cnt = max(0, min(nb.shape[1] - off, s_loc))
+    if cnt:
+        loc[:, :cnt] = nb[:, off:off + cnt].to(loc.dtype)
+
+
+def masked_write(cache: torch.Tensor, new: torch.Tensor, pos, off: int):
+    """``cache[r, pos[r] - off] = new[r]`` for the rows whose position falls
+    in this block of positions [off, off + S_loc), in place; the other
+    rows keep their values (a read and a write of one position a row)."""
+    s_loc = cache.shape[1]
+    rel = pos.long() - off
+    hit = (rel >= 0) & (rel < s_loc)
+    relc = rel.clamp(0, s_loc - 1)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    old = cache[rows, relc]
+    hit = hit.reshape(-1, *([1] * (new.ndim - 1)))
+    cache[rows, relc] = torch.where(hit, new.to(cache.dtype), old)
+
+
+def row_slice(mesh, pl, n_rows: int, t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of ``t`` (every rank's same whole value) under the
+    row placements of ``pl``."""
+    r0, nb = local_offset(mesh, rows_view(pl), 0, n_rows)
+    return t[r0:r0 + nb]
+
+
+def decode_sharded(q, k_new, v_new, k_cache, v_cache, length, layer=None):
+    """One decode step's attention over caches sharded along their length
+    (DTensors (B, S, KVH, HD), or L-stacked with ``layer``): ``k_new`` /
+    ``v_new`` (B, 1, KVH, HD) written at ``length`` (B,) by
+    `masked_write` on each rank's block, then every head of q (B, 1, H,
+    HD) attends to positions 0..length by split-K over the ranks holding
+    the blocks.  With ``k_new`` None nothing is written and q attends to
+    the whole cache (cross-attention).  Returns (B, 1, H, HD), rows laid
+    out as the cache's, every head on every rank."""
+    mesh = q.device_mesh
+    kb, pl, shape = _layer_block(k_cache, layer)
+    vb, _, _ = _layer_block(v_cache, layer)
+    rows = rows_view(pl)
+    qb = block(q, rows)
+    off, _ = local_offset(mesh, pl, 1, shape[1])
+    if k_new is None:
+        lens = torch.full((qb.shape[0],), shape[1], dtype=torch.long,
+                          device=qb.device)
+    else:
+        ln = row_slice(mesh, pl, shape[0], length.long())
+        masked_write(kb, block(k_new, rows)[:, 0], ln, off)
+        masked_write(vb, block(v_new, rows)[:, 0], ln, off)
+        lens = ln + 1
+    o = block_decode_attention(qb, kb, vb, lens, off,
+                               shard_groups(mesh, pl, 1))
+    return wrap(o, mesh, rows, (shape[0],) + tuple(q.shape[1:]))

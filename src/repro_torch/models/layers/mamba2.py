@@ -13,15 +13,41 @@ functions are plain ``jnp`` (no Pallas kernel), so these are plain PyTorch
 with the same casts: the SSD in float32, the products in the activation
 dtype.  ``softplus`` is JAX's ``logaddexp(x, 0)`` (torch's own turns
 linear past 20, a different value there).
+
+Sharded (a DTensor ``x``, `repro_torch.parallel`): each rank runs its
+heads ("ssm_inner" on "model"): the chunked scan is per head, so it
+needs no collective inside.  Its share of the weights (`_Heads`) is cut
+from ``w_in`` / ``conv_w`` / ``conv_b`` gathered whole (their "model"
+shards are contiguous blocks of columns, which do not follow the
+[z | x | B | C | dt] layout; B and C are every head's) and from its rows
+of ``w_out``.  Two places communicate: the gated RMS over all of d_inner
+(an all-reduce of the sum of squares over the head dimensions,
+`parallel.ax.psum`) and the out-projection (a partial sum, reduced where
+the block's residual is constrained, as `basic.mlp_apply`'s).  Heads
+that do not split over "model" run on every rank.  The caches follow
+``cache_specs`` (`sharded_step`).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.basic import const_param, normal_param
+from repro_torch.parallel.ax import (
+    axis_of,
+    block,
+    local_map,
+    local_offset,
+    psum,
+    redistribute_local,
+    rows_view,
+    wrap,
+)
 
 LOG_EPS = -80.0
 
@@ -59,14 +85,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _split_in(cfg: ModelConfig, proj):
-    """(z, [x | B | C], dt) of the input projection."""
-    di, n = cfg.d_inner, cfg.ssm_state
+def _split_in(cfg: ModelConfig, proj, heads: int):
+    """(z, [x | B | C], dt) of the input projection of ``heads`` heads."""
+    di, n = heads * cfg.ssm_head_dim, cfg.ssm_state
     e = 2 * di + 2 * n
     return proj[..., :di], proj[..., di:e], proj[..., e:]
 
 
-def _causal_conv(m: Mamba2, xbc, cache=None):
+def _causal_conv(m, xbc, cache=None):
     """Depthwise causal conv over time. xbc: (B,S,C); cache: (B,w-1,C), the
     last w-1 inputs before ``xbc``.  Returns (silu(conv + bias), the last
     w-1 inputs of [cache | xbc]: the next call's cache)."""
@@ -85,11 +111,17 @@ def _causal_conv(m: Mamba2, xbc, cache=None):
     return act, new_cache
 
 
-def _gated_out(m: Mamba2, cfg: ModelConfig, y, z, x_dtype):
+def _gated_out(m, cfg: ModelConfig, y, z, x_dtype):
     """y * silu(z) -> one RMS over all of d_inner (scaled by ``gate_norm``)
-    -> out_proj."""
+    -> out_proj.  Over a rank's heads (``m.groups``, the ranks holding the
+    others) the sum of squares is summed over the groups first."""
     g = y.float() * torch.nn.functional.silu(z.float())
-    var = torch.mean(g * g, dim=-1, keepdim=True)
+    groups = getattr(m, "groups", ())
+    if groups:
+        var = psum(torch.sum(g * g, dim=-1, keepdim=True),
+                   groups) / cfg.d_inner
+    else:
+        var = torch.mean(g * g, dim=-1, keepdim=True)
     g = g * torch.rsqrt(var + cfg.norm_eps) * m.gate_norm.float()
     return g.to(x_dtype) @ m.w_out
 
@@ -201,10 +233,11 @@ def ssd_ref(cfg: ModelConfig, xh, b_, c_, dt, a_log, d_skip):
 def _pre_ssd(m: Mamba2, cfg: ModelConfig, x, conv_cache=None):
     """(z, x heads (B,S,H,P), B (B,S,N), C (B,S,N), dt (B,S,H) float32,
     the conv cache after ``x``)."""
-    proj = x @ m.w_in
-    z, xbc, dt_raw = _split_in(cfg, proj)
+    h = m.dt_bias.shape[0]                                 # its heads
+    z, xbc, dt_raw = _split_in(cfg, x @ m.w_in, h)
     xbc, new_conv = _causal_conv(m, xbc, conv_cache)
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    di = h * p
     xin = xbc[..., :di].reshape(*x.shape[:2], h, p)
     b_ = xbc[..., di:di + n]
     c_ = xbc[..., di + n:]
@@ -214,9 +247,15 @@ def _pre_ssd(m: Mamba2, cfg: ModelConfig, x, conv_cache=None):
 
 def mamba2_train(m: Mamba2, cfg: ModelConfig, x):
     """x: (B,S,D) -> (B,S,D)."""
+    if isinstance(x, DTensor):
+        return _train_sharded(m, cfg, x)
+    return _train_local(m, cfg, x)
+
+
+def _train_local(m, cfg: ModelConfig, x):
     z, xin, b_, c_, dt, _ = _pre_ssd(m, cfg, x)
     y, _ = ssd_chunked(cfg, xin, b_, c_, dt, m.a_log, m.d_skip)
-    y = y.reshape(*x.shape[:2], cfg.d_inner).to(x.dtype)
+    y = y.reshape(*x.shape[:2], -1).to(x.dtype)
     return _gated_out(m, cfg, y, z, x.dtype)
 
 
@@ -224,7 +263,7 @@ def mamba2_prefill(m: Mamba2, cfg: ModelConfig, x):
     """Returns (y, SSD state (B,H,P,N) float32, conv cache (B,w-1,CD))."""
     z, xin, b_, c_, dt, conv_cache = _pre_ssd(m, cfg, x)
     y, state = ssd_chunked(cfg, xin, b_, c_, dt, m.a_log, m.d_skip)
-    y = y.reshape(*x.shape[:2], cfg.d_inner).to(x.dtype)
+    y = y.reshape(*x.shape[:2], -1).to(x.dtype)
     return _gated_out(m, cfg, y, z, x.dtype), state, conv_cache
 
 
@@ -240,5 +279,135 @@ def mamba2_decode(m: Mamba2, cfg: ModelConfig, x, state, conv_cache):
     state = state * decay[:, :, None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", state, c_[:, 0].float())
     y = y + m.d_skip[None, :, None] * xin[:, 0].float()
-    y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype)
+    y = y.reshape(x.shape[0], 1, -1).to(x.dtype)
     return _gated_out(m, cfg, y, z, x.dtype), state, new_conv
+
+
+# ---------------------------------------------------------------- sharded ---
+
+
+class _Heads(NamedTuple):
+    """A rank's share of a `Mamba2`'s weights (the module's names): its
+    heads' columns of ``w_in`` (z, x and dt) with every B and C column,
+    its heads' conv channels with B's and C's, its heads' entries of the
+    per-head and per-channel vectors, its rows of ``w_out``; ``groups``
+    are the process groups holding the other heads."""
+
+    w_in: torch.Tensor
+    conv_w: torch.Tensor
+    conv_b: torch.Tensor
+    a_log: torch.Tensor
+    d_skip: torch.Tensor
+    dt_bias: torch.Tensor
+    gate_norm: torch.Tensor
+    w_out: torch.Tensor
+    groups: tuple
+
+
+_WHOLE = ("w_in", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias",
+          "gate_norm")
+
+
+def _plan(m: Mamba2, cfg: ModelConfig, x):
+    """(mesh, the views of the weights `_WHOLE` then ``w_out``, the mesh
+    dimensions holding the heads, this rank's first head and head
+    count).  The heads lie on the mesh dimensions whose ranks hold rows
+    of ``w_out`` where ``ssm_heads`` splits over them (``cache_specs``
+    shards the state's heads by the same test); elsewhere every rank
+    runs every head."""
+    mesh = x.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    out_view = tuple(
+        Shard(0) if p == Shard(0) and cfg.ssm_heads % mesh.size(k) == 0
+        else Replicate() for k, p in enumerate(m.w_out.placements))
+    lo, hn = local_offset(mesh, out_view, 0, cfg.ssm_heads)
+    head_dims = tuple(k for k, p in enumerate(out_view) if p.is_shard()
+                      and mesh.size(k) > 1)
+    return mesh, (whole,) * len(_WHOLE) + (out_view,), head_dims, lo, hn
+
+
+def _select(cfg: ModelConfig, lo: int, hn: int, groups, w_in, conv_w,
+            conv_b, a_log, d_skip, dt_bias, gate_norm, w_out) -> _Heads:
+    """`_Heads` of heads [lo, lo + hn) from the whole weights (``w_out``
+    already the rank's rows)."""
+    if hn == cfg.ssm_heads:
+        return _Heads(w_in, conv_w, conv_b, a_log, d_skip, dt_bias,
+                      gate_norm, w_out, tuple(groups))
+    di, n, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    dev = w_in.device
+
+    def ar(a, b):
+        return torch.arange(a, b, device=dev)
+
+    mine = ar(lo * p, (lo + hn) * p)
+    cols = torch.cat([mine, di + mine, ar(2 * di, 2 * di + 2 * n),
+                      2 * di + 2 * n + ar(lo, lo + hn)])
+    chans = torch.cat([mine, ar(di, di + 2 * n)])
+    hs = slice(lo, lo + hn)
+    return _Heads(w_in[:, cols], conv_w[:, chans], conv_b[chans], a_log[hs],
+                  d_skip[hs], dt_bias[hs], gate_norm[lo * p:(lo + hn) * p],
+                  w_out, tuple(groups))
+
+
+def _out_view(x_rows, head_dims) -> tuple:
+    return tuple(Partial() if k in head_dims else p
+                 for k, p in enumerate(x_rows))
+
+
+def _train_sharded(m: Mamba2, cfg: ModelConfig, x):
+    """`mamba2_train` on each rank's heads (`parallel.ax.local_map`): the
+    weights gathered whole but ``w_out`` (the rank's rows), the output a
+    partial sum over the head dimensions."""
+    mesh, views, head_dims, lo, hn = _plan(m, cfg, x)
+    rows = rows_view(x.placements)
+    groups = [axis_of(mesh, k)[2] for k in head_dims]
+
+    def local(x, *w):
+        return _train_local(_select(cfg, lo, hn, groups, *w), cfg, x)
+
+    ws = tuple(getattr(m, k) for k in _WHOLE) + (m.w_out,)
+    return local_map(local, mesh, (x,) + ws, (rows,) + views,
+                     _out_view(rows, head_dims), x.placements)
+
+
+@torch.no_grad()
+def sharded_step(m: Mamba2, cfg: ModelConfig, x, cache: dict,
+                 decode: bool):
+    """A prefill (``decode`` False) or a decode step of a DTensor ``x`` on
+    each rank's heads, the cache's state (heads on "model") and conv
+    window (channels on "model") placed by ``cache_specs`` and written
+    in place: the state block is the rank's heads'; the conv window's
+    channels of every head are gathered over the head dimensions, and
+    each rank keeps its block of them.  Returns y, a partial sum over the
+    head dimensions."""
+    mesh, views, head_dims, lo, hn = _plan(m, cfg, x)
+    st, cv = cache["state"], cache["conv"]
+    rows = rows_view(st.placements)
+    groups = [axis_of(mesh, k)[2] for k in head_dims]
+    ws = [block(getattr(m, k), v)
+          for k, v in zip(_WHOLE + ("w_out",), views)]
+    w = _select(cfg, lo, hn, groups, *ws)
+    xb = block(x, rows)
+    if decode:
+        conv = block(cv, rows_view(cv.placements))
+        if hn != cfg.ssm_heads:
+            di, p = cfg.d_inner, cfg.ssm_head_dim
+            conv = torch.cat([conv[..., lo * p:(lo + hn) * p],
+                              conv[..., di:]], dim=-1)
+        y, state, new_conv = mamba2_decode(w, cfg, xb, st._local_tensor,
+                                           conv)
+    else:
+        y, state, new_conv = mamba2_prefill(w, cfg, xb)
+    st._local_tensor.copy_(state)
+    # the conv window of every channel, then this rank's block of it
+    px = hn * cfg.ssm_head_dim
+    xs = new_conv[..., :px]
+    if hn != cfg.ssm_heads:
+        src = tuple(Shard(2) if k in head_dims else r
+                    for k, r in enumerate(rows))
+        xs = redistribute_local(xs.contiguous(), mesh, src, rows)
+    full = torch.cat([xs, new_conv[..., px:]], dim=-1)
+    cv._local_tensor.copy_(redistribute_local(
+        full, mesh, rows_view(cv.placements), tuple(cv.placements)))
+    return wrap(y, mesh, _out_view(rows, head_dims),
+                (st.shape[0],) + tuple(x.shape[1:]))

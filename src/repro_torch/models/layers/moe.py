@@ -10,7 +10,8 @@ by hand (`parallel.ax.local_map`): every rank routes and dispatches all
 the tokens (their rows gathered over "data"), so capacity and drops are
 the unsharded ones; it runs its own experts ("expert" on "model", each
 expert's weights gathered over "data") on its share of their capacity
-slots ("expert_cap" on "data", JAX's ``constrain`` at the same site), and
+slots ("expert_cap" on "data", JAX's ``constrain`` at the same site,
+less the data axes that do not divide the slots), and
 the combined rows are summed over the mesh back to the batch's layout.
 With top-2 a token's sum is still ``0 + a + b``, exact in any order.
 
@@ -105,6 +106,18 @@ class Dispatch(NamedTuple):
     c: int
 
 
+def slots(cfg: ModelConfig, n_tokens: int) -> int:
+    """The capacity slots an expert gets (`Dispatch.c`) when `dispatch`
+    takes ``n_tokens`` tokens."""
+    tk = n_tokens * cfg.moe_top_k
+    blocks = max(cfg.moe_dispatch_blocks, 1)
+    if blocks > 1 and tk % blocks == 0:
+        per = tk // blocks
+        return blocks * max(8, -(-math.ceil(per / cfg.moe_experts
+                                            * cfg.capacity_factor) // 8) * 8)
+    return capacity(cfg, n_tokens)
+
+
 def dispatch(cfg: ModelConfig, gates: torch.Tensor,
              idx: torch.Tensor) -> Dispatch:
     """Sort-based dispatch of the (T, K) choices ``idx`` into E experts'
@@ -195,8 +208,14 @@ def _moe_sharded(moe: MoE, cfg: ModelConfig, x: DTensor) -> DTensor:
     whole = (Replicate(),) * mesh.ndim
     w_view = tuple(p if p == Shard(0) else Replicate()
                    for p in moe.w_gate.placements)
-    cap = tuple(Shard(1) if names[k] in DATA_AXES and w_view[k] != Shard(0)
-                else Replicate() for k in range(mesh.ndim))
+    c, prod, cap = slots(cfg, x.shape[0] * x.shape[1]), 1, []
+    for k in range(mesh.ndim):       # the data axes that divide the slots
+        n = mesh.size(k)
+        ok = (names[k] in DATA_AXES and w_view[k] != Shard(0)
+              and c % (prod * n) == 0)
+        cap.append(Shard(1) if ok else Replicate())
+        prod *= n if ok else 1
+    cap = tuple(cap)
     out_view = tuple(Partial() if w_view[k] == Shard(0) or cap[k] == Shard(1)
                      else Replicate() for k in range(mesh.ndim))
     e_lo, e_n = local_offset(mesh, w_view, 0, cfg.moe_experts)

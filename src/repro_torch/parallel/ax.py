@@ -1,13 +1,13 @@
 """Logical activation-axis sharding (port of ``repro.parallel.ax``), and the
 hand-written redistributions the sharded trainer runs on.
 
-Models annotate activations with *logical* axis names; a thread-local rule
+Models annotate activations with *logical* axis names; a process-wide rule
 set (installed by the launcher under a mesh) maps them to mesh axes.
 Outside a rules context every annotation is a no-op, so model code runs
 unchanged on one device.  Under rules `constrain` redistributes a DTensor
 to the placements `spec_for` gives (JAX's ``with_sharding_constraint``;
 JAX's own ``constrain`` raises on a mesh with explicit axes, ROADMAP
-Queue 3).
+Queue 3), less the axes that do not divide a dimension.
 
 A sharded parameter is a ``torch.distributed.tensor.DTensor``: each rank
 stores its block, and ops that need no communication run through
@@ -25,8 +25,9 @@ on.  The differentiable forms:
   shards all-gathered (FSDP; the backward reduce-scatters the gradient);
 - `local_map(fn, ...)`: ``fn`` over this rank's blocks, brought to given
   placements, its output a given layout (``Partial`` entries being
-  summands); the backward differentiates ``fn``'s local graph and sums
-  each input's gradient where the forward replicated it.
+  summands); the backward differentiates ``fn``'s local graph (under
+  activation checkpointing, ``fn`` run again on the kept blocks) and
+  sums each input's gradient where the forward replicated it.
 
 Shards are even (torch.chunk's split with no remainder): an uneven one
 raises.
@@ -35,14 +36,17 @@ raises.
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.parallel import comm as C
 
-_state = threading.local()
+# process-wide, not thread-local: the autograd engine runs a CUDA
+# backward (and activation checkpointing's recompute inside it) on a
+# device thread of its own, which must see the same rules
+_state = types.SimpleNamespace(mesh=None, rules=None)
 
 # default logical-name -> mesh-axes mapping used by the production mesh
 DEFAULT_RULES: dict[str, tuple[str, ...] | str | None] = {
@@ -89,6 +93,12 @@ def logical_rules(mesh, rules: dict | None = None):
 
 def _axis_names(mesh) -> tuple:
     return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def mesh_shape(mesh) -> tuple:
+    """The sizes of ``mesh``'s dimensions (read without building the rank
+    tensor ``mesh.mesh``, whose ops a count would see on the host)."""
+    return tuple(mesh.size(k) for k in range(mesh.ndim))
 
 
 def spec_for(*names: str | None) -> P:
@@ -196,8 +206,16 @@ def grad_placements(placements) -> tuple:
     return tuple(Replicate() if p.is_partial() else p for p in placements)
 
 
+def _contiguous_strides(shape) -> tuple:
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
 def wrap(local: torch.Tensor, mesh, placements, shape) -> DTensor:
-    stride = torch.empty(shape, device="meta").stride()
+    stride = _contiguous_strides(shape)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=torch.Size(shape), stride=stride)
 
@@ -236,7 +254,27 @@ def constrain(x, *names: str | None):
     if len(names) != x.ndim:
         raise ValueError(f"{len(names)} names for a {x.ndim}-d tensor "
                          f"{tuple(x.shape)}: {names}")
-    return redistribute(x, placements_for(spec_for(*names), x.device_mesh))
+    spec = _dividing(spec_for(*names), x.shape, x.device_mesh)
+    return redistribute(x, placements_for(spec, x.device_mesh))
+
+
+def _dividing(spec, shape, mesh) -> P:
+    """``spec`` with each dimension's mesh axes cut to the longest prefix
+    whose sizes' product divides the dimension (`shardings.batch_axes`'
+    rule: long_500k's one row lies on no axis)."""
+    sizes = dict(zip(_axis_names(mesh), mesh_shape(mesh)))
+    parts = []
+    for entry, dim in zip(spec, shape):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        keep, prod = [], 1
+        for a in axes:
+            if dim % (prod * sizes[a]):
+                break
+            keep.append(a)
+            prod *= sizes[a]
+        parts.append(tuple(keep) if len(keep) > 1
+                     else (keep[0] if keep else None))
+    return P(*parts)
 
 
 def gathered(w):
@@ -289,6 +327,14 @@ def local_offset(mesh, placements, dim: int, size: int) -> tuple[int, int]:
     return off, size
 
 
+def _under_checkpoint() -> bool:
+    """Whether saved-tensor hooks are active: activation checkpointing's
+    forward (or its recompute) is running."""
+    top = getattr(torch._C._autograd, "_top_saved_tensors_default_hooks",
+                  None)
+    return top is not None and top(False) is not None
+
+
 class _LocalMap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fn, mesh, views, out_view, out_placements, *args):
@@ -306,9 +352,25 @@ class _LocalMap(torch.autograd.Function):
                 leaves.append(loc)
             else:
                 leaves.append(a)
-        with torch.enable_grad():
-            out = fn(*leaves)
-        ctx.graph = (out, [leaves[i] for i in grad_at], grad_at)
+        ctx.fn, ctx.grad_at = fn, grad_at
+        # under activation checkpointing the region's blocks are kept and
+        # ``fn`` is run again in the backward (its own remat): a local
+        # graph's tensors packed by the checkpoint's hooks would be
+        # unpacked by the backward's own `autograd.grad`, a graph task of
+        # its own, each unpack recomputing the whole region once more
+        ctx.remat = _under_checkpoint()
+        if ctx.remat:
+            with torch.no_grad():
+                out = fn(*leaves)
+            kept = [t for t in leaves if isinstance(t, torch.Tensor)]
+            ctx.save_for_backward(*kept)
+            ctx.other = [None if isinstance(t, torch.Tensor) else t
+                         for t in leaves]
+            ctx.graph = None
+        else:
+            with torch.enable_grad():
+                out = fn(*leaves)
+            ctx.graph = (out, [leaves[i] for i in grad_at])
         ctx.shape = [a.shape if isinstance(a, DTensor) else None
                      for a in args]
         loc = redistribute_local(out.detach().contiguous(), mesh, out_view,
@@ -321,9 +383,22 @@ class _LocalMap(torch.autograd.Function):
         return wrap(loc, mesh, out_placements, shape)
 
     @staticmethod
+    def _replay(ctx):
+        """(output, leaves needing gradients) of ``fn`` run again on the
+        kept blocks, with autograd on."""
+        kept = iter(ctx.saved_tensors)
+        leaves = [next(kept) if o is None else o for o in ctx.other]
+        leaves = [t.detach().requires_grad_(True) if i in ctx.grad_at else t
+                  for i, t in enumerate(leaves)]
+        with torch.enable_grad():
+            out = ctx.fn(*leaves)
+        return out, [leaves[i] for i in ctx.grad_at]
+
+    @staticmethod
     def backward(ctx, g):
-        out, inputs, grad_at = ctx.graph
+        out, inputs = (_LocalMap._replay(ctx) if ctx.remat else ctx.graph)
         ctx.graph = None
+        grad_at = ctx.grad_at
         mesh = ctx.mesh
         g_loc = redistribute_local(g._local_tensor, mesh, g.placements,
                                    grad_placements(ctx.out_view))
@@ -351,3 +426,96 @@ def local_map(fn, mesh, args, views, out_view, out_placements):
     Differentiable: ``fn``'s local graph is kept for the backward."""
     return _LocalMap.apply(fn, mesh, tuple(map(tuple, views)),
                            tuple(out_view), tuple(out_placements), *args)
+
+
+# --------------------------------------------------------------------------
+# the pieces the sharded layers build on
+# --------------------------------------------------------------------------
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        for g in groups:
+            x = C.all_reduce(x, g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for gr in ctx.groups:
+            g = C.all_reduce(g, gr)
+        return g, None
+
+
+def psum(x: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of this rank's block ``x`` over ``groups`` (process groups;
+    None entries skipped), differentiable: every rank's downstream block
+    depends on the sum, so the backward sums the gradient over them too."""
+    groups = tuple(g for g in groups if g is not None)
+    return _PSum.apply(x, groups) if groups else x
+
+
+def split_heads(t, heads: int):
+    """(..., heads * hd) -> (..., heads, hd).  A DTensor's shards of the last
+    dimension stay on the heads where ``heads`` splits over the mesh
+    dimension; where it does not, that dimension is gathered first and
+    every rank holds every head (as `attention._attend_sharded` replicates
+    heads fewer than the ranks)."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+    mesh, d = t.device_mesh, t.ndim - 1
+    view = tuple(Replicate() if p == Shard(d) and heads % mesh.size(k)
+                 else p for k, p in enumerate(t.placements))
+    hd = t.shape[-1] // heads
+    return local_map(lambda x: x.reshape(*x.shape[:-1], -1, hd), mesh, (t,),
+                     (view,), view, view)
+
+
+def merge_heads(t):
+    """(..., H, hd) -> (..., H * hd); a DTensor's head shards become shards
+    of the merged dimension."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*t.shape[:-2], -1)
+    pl = tuple(t.placements)
+    return local_map(lambda x: x.reshape(*x.shape[:-2], -1), t.device_mesh,
+                     (t,), (pl,), pl, pl)
+
+
+def rows_view(placements) -> tuple:
+    """``placements`` with every entry but a shard of dimension 0 (the
+    rows) replicated."""
+    return tuple(p if p == Shard(0) else Replicate() for p in placements)
+
+
+def block(x, view) -> torch.Tensor:
+    """This rank's block of the DTensor ``x`` laid out as ``view`` (not
+    differentiable: for the steps that run without autograd)."""
+    return redistribute_local(x._local_tensor, x.device_mesh, x.placements,
+                              view)
+
+
+def shard_groups(mesh, placements, dim: int) -> list:
+    """The process groups of the mesh dimensions (of size > 1) that shard
+    tensor dimension ``dim`` under ``placements``."""
+    return [axis_of(mesh, k)[2] for k, p in enumerate(placements)
+            if p == Shard(dim) and mesh.size(k) > 1]
+
+
+def whole(w):
+    """A DTensor weight all-gathered over every mesh dimension (every rank
+    computes the product whole, as a replicated weight would); a plain
+    tensor as is."""
+    if not isinstance(w, DTensor):
+        return w
+    want = (Replicate(),) * w.device_mesh.ndim
+    return w if tuple(w.placements) == want else redistribute(w, want)
+
+
+def head_view(placements, heads_dim: int, to_dim: int) -> tuple:
+    """Where ``placements`` shard dimension ``heads_dim`` (the heads),
+    Shard(``to_dim``); Replicate elsewhere: the view of a tensor whose
+    dimension ``to_dim`` is laid out by the same heads (a weight's
+    columns, a partial's heads)."""
+    return tuple(Shard(to_dim) if p == Shard(heads_dim) else Replicate()
+                 for p in placements)

@@ -8,7 +8,10 @@ S / n slice and the ranks combine with an all-reduce MAX of the maxima
 and one all-reduce SUM of the rescaled sums and outputs: wire traffic
 O(B·H·D) instead of O(B·S·KVH·D).  Plain PyTorch, as JAX's is plain
 ``jnp`` under ``shard_map`` (it is no Pallas kernel); the collectives are
-`parallel.comm`'s.
+`parallel.comm`'s.  `block_decode_attention` is the same over a cache a
+rank holds only its block of (the models' sharded decode,
+`attention.decode_sharded`), and `merge_partials` the merge MLA's
+absorbed decode shares.
 """
 
 from __future__ import annotations
@@ -40,6 +43,32 @@ def _local_partial(q, k, v, length, s0: int):
     return m, l, o
 
 
+def merge_partials(m, l, o, groups):
+    """The softmax-weighted output of float32 partials (max ``m``, sum
+    ``l``, output ``o``) over disjoint slices of the keys, one a rank of
+    ``groups``: an all-reduce MAX of the maxima, then one all-reduce SUM
+    of the rescaled sums and outputs a group.  No groups: ``o / l``."""
+    mm = m
+    for g in groups:
+        mm = C.all_reduce(mm, g, "max")
+    alpha = torch.exp(m - mm)
+    lo = torch.cat([(l * alpha)[..., None], o * alpha[..., None]], dim=-1)
+    for g in groups:
+        lo = C.all_reduce(lo, g)
+    return lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
+
+
+def block_decode_attention(q, k_block, v_block, length, s0: int, groups):
+    """Split-K decode attention of a rank's cache block: q (B,1,H,D) with
+    every head; blocks (B,S_loc,KVH,D) holding positions [s0, s0 +
+    S_loc); length (B,).  The partials merge over ``groups`` (the ranks
+    holding the other blocks).  Returns (B,1,H,D) in q's dtype."""
+    m, l, o = _local_partial(q, k_block, v_block, length, s0)
+    out = merge_partials(m, l, o, groups)
+    b, kvh, g, d = out.shape
+    return out.reshape(b, 1, kvh * g, d).to(q.dtype)
+
+
 @torch.no_grad()
 def split_k_decode_attention(mesh, q, k_cache, v_cache, length,
                              axis: str = "model"):
@@ -55,12 +84,5 @@ def split_k_decode_attention(mesh, q, k_cache, v_cache, length,
     s_loc = s // n
     kc = k_cache[:, i * s_loc:(i + 1) * s_loc]
     vc = v_cache[:, i * s_loc:(i + 1) * s_loc]
-    m, l, o = _local_partial(q, kc, vc, length, i * s_loc)
-    # rescaled combine: M = global max; sum l', o' with alpha factors
-    mm = m if n == 1 else C.all_reduce(m, group, "max")
-    alpha = torch.exp(m - mm)
-    lo = torch.cat([(l * alpha)[..., None], o * alpha[..., None]], dim=-1)
-    lo = lo if n == 1 else C.all_reduce(lo, group)
-    out = lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
-    b, kvh, g, d = out.shape
-    return out.reshape(b, 1, kvh * g, d).to(q.dtype)
+    return block_decode_attention(q, kc, vc, length, i * s_loc,
+                                  [] if n == 1 else [group])

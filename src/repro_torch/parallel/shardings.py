@@ -17,7 +17,9 @@ group.  `to_named` gives `NamedSharding`s (mesh, spec, DTensor
 placements); `shard_params` / `shard_state` / `shard_batch` are the
 counterpart of ``jax.device_put(tree, shardings)``: each rank keeps only
 its block (every rank holds the whole value first: the same seed draws
-the same weights, the same pipeline step the same batch).
+the same weights, the same pipeline step the same batch).  A block may
+lie on the meta device whatever the mesh's device type (the dry-run's
+production mesh is a CPU mesh of a fake group holding meta blocks).
 """
 
 from __future__ import annotations
@@ -29,7 +31,13 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.parallel.ax import P, block_index, placements_for, wrap
+from repro_torch.parallel.ax import (
+    P,
+    block_index,
+    mesh_shape,
+    placements_for,
+    wrap,
+)
 
 # name -> spec over the *trailing* dims (leading stack axes padded with None)
 _TRAILING_RULES: dict[str, tuple] = {
@@ -113,7 +121,7 @@ def axis_sizes(mesh) -> dict:
     mapping."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh_shape(mesh)))
 
 
 _CACHE_RULES = {
@@ -202,7 +210,7 @@ class NamedSharding:
 
     def _check(self, device) -> str:
         device = self.mesh.device_type if device is None else device
-        if torch.device(device).type != self.mesh.device_type:
+        if torch.device(device).type not in (self.mesh.device_type, "meta"):
             raise ValueError(f"a tensor for {device} on a "
                              f"{self.mesh.device_type} mesh")
         if self.mesh.get_coordinate() is None:
@@ -218,7 +226,7 @@ class NamedSharding:
                            else device)
         device = self._check(device)
         full = full.detach()
-        idx = block_index(full.shape, tuple(self.mesh.mesh.shape),
+        idx = block_index(full.shape, mesh_shape(self.mesh),
                           self.placements, self.mesh.get_coordinate())
         loc = full[idx].to(device).contiguous()
         if (loc.untyped_storage().data_ptr()

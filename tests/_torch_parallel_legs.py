@@ -3,9 +3,13 @@
 (`legs`, spawned by `_torch_ranks.spawn_ranks`), and the single-process
 counterparts the test runs itself.  Torch and the port only, never JAX.
 
-On 8 ranks: the sharded train step of each of STEP_ARCHS on a 4 x 2
-("data", "model") mesh (`sharded_step`; ACCUM_ARCH's also at
-accum_steps 2), split-K decode attention on
+On 8 ranks: the sharded train step of each of STEP_ARCHS and
+MIXER_ARCHS on a 4 x 2 ("data", "model") mesh (`sharded_step`;
+ACCUM_ARCH's also at accum_steps 2), a prefill and SERVE_STEPS decode
+steps of each of SERVE_ARCHS on the same mesh (`serve_leg`), the
+dry-run's count of COUNT_ARCHS' train and decode steps on it
+(`count_leg`, rank 0 records), each step with DTensor's own collectives
+forbidden; split-K decode attention on
 1 x 8, ``compressed_pmean`` on 8 x 1, a 4 x 2 save restored onto 2 x 1
 (ranks 0-1); then ranks 0-3 alone start a group of 4 and run the CLI on
 2 x 2: 8 steps through, and 4 steps with a checkpoint resumed to 8.
@@ -20,6 +24,15 @@ import time
 import numpy as np
 
 STEP_ARCHS = ("granite_8b", "phi3_5_moe_42b")
+MIXER_ARCHS = ("deepseek_v2_236b", "mamba2_370m", "jamba_1_5_large_398b",
+               "whisper_base")              # MLA, SSD, hybrid, enc-dec
+SERVE_ARCHS = ("granite_8b", "phi3_5_moe_42b", "deepseek_v2_236b",
+               "mamba2_370m", "jamba_1_5_large_398b", "whisper_base",
+               "internvl2_2b")
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_LEN = 8, 16, 3, 32
+COUNT_ARCHS = ("granite_8b", "mamba2_370m")
+COUNT_KINDS = ("train", "decode")
+COUNT_SHAPE = (8, 16, 32)                         # rows, tokens, cache
 STEP_MESH = (4, 2)
 STEP_OPT = dict(lr=1e-3, state_dtype="float32")   # tests/test_parallel.py
 STEP_B, STEP_S = 8, 32
@@ -35,10 +48,15 @@ CLI_KILL, CLI_STEPS = 4, 8
 
 
 def step_batch(cfg) -> dict:
-    """tests/test_parallel.py's batch: rng(0), (8, 32) tokens and labels."""
+    """tests/test_parallel.py's batch: rng(0), (8, 32) tokens and labels;
+    then an encoder-decoder's frames (8, encoder_seq, d_model)."""
     rng = np.random.default_rng(0)
-    return {k: rng.integers(0, cfg.vocab_size, (STEP_B, STEP_S)).astype(
+    out = {k: rng.integers(0, cfg.vocab_size, (STEP_B, STEP_S)).astype(
         np.int32) for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (STEP_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def single_step(arch: str, accum: int = 1):
@@ -74,6 +92,7 @@ def sharded_step(rec: dict, arch: str, mesh, accum: int = 1) -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import api
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import comm as C
     from repro_torch.parallel import shardings as SH
     from repro_torch.parallel.ax import logical_rules
     from repro_torch.train import make_train_step
@@ -89,7 +108,7 @@ def sharded_step(rec: dict, arch: str, mesh, accum: int = 1) -> None:
     opt = adamw_init(ocfg, named)
     batch = SH.shard_batch({k: torch.as_tensor(v) for k, v in
                             step_batch(cfg).items()}, mesh, "cpu")
-    with logical_rules(mesh):
+    with logical_rules(mesh), C.no_functional_collectives():
         model, opt, met = make_train_step(cfg, ocfg, accum)(model, opt,
                                                              batch)
     for k, p in model.named_parameters():
@@ -100,6 +119,138 @@ def sharded_step(rec: dict, arch: str, mesh, accum: int = 1) -> None:
     rec[f"{pre}/bytes"] = np.asarray(SH.local_bytes(named)
                                       + SH.local_bytes(opt["m"])
                                       + SH.local_bytes(opt["v"]))
+
+
+def serve_inputs(cfg) -> dict:
+    """rng(1): the prompt (SERVE_B, SERVE_S), the SERVE_STEPS decode tokens
+    (teacher-forced), a VLM's vision embeddings and an encoder-decoder's
+    frames."""
+    rng = np.random.default_rng(1)
+    b, v = SERVE_B, cfg.vocab_size
+    out = {"tokens": rng.integers(0, v, (b, SERVE_S)).astype(np.int32),
+           "steps": rng.integers(0, v, (b, SERVE_STEPS)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve_run(cfg, model, caches, place) -> tuple:
+    """A prefill of `serve_inputs` into ``caches``, then SERVE_STEPS
+    decode steps; ``place`` turns a dict of numpy leaves into the step's
+    inputs.  Returns (the prefill's and each step's logits, caches)."""
+    import torch
+
+    x = serve_inputs(cfg)
+    batch = place({k: v for k, v in x.items() if k != "steps"})
+    if cfg.family == "audio":
+        lg, caches = model.prefill(batch["tokens"], batch["frames"], caches)
+    elif cfg.family == "vlm":
+        lg, caches = model.prefill(batch["tokens"], caches,
+                                   vision_embeds=batch["vision_embeds"])
+    else:
+        lg, caches = model.prefill(batch["tokens"], caches)
+    out = [lg]
+    s0 = SERVE_S + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    for k in range(SERVE_STEPS):
+        tok = place({"token": x["steps"][:, k:k + 1]})["token"]
+        lg, caches = model.decode_step(
+            tok, caches, torch.full((SERVE_B,), s0 + k, dtype=torch.int32))
+        out.append(lg)
+    return out, caches
+
+
+def cache_leaves(caches) -> dict:
+    """{name: leaf} of a model's caches (a list of per-layer dicts, or the
+    encoder-decoder's dict)."""
+    if isinstance(caches, dict):
+        return dict(caches)
+    return {f"{i}/{k}": v for i, c in enumerate(caches)
+            for k, v in c.items()}
+
+
+def single_serve(arch: str) -> tuple:
+    """`serve_run` in this one process: (logits, {cache leaf: array})."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import api
+
+    cfg = get_smoke_config(arch)
+    m = api(cfg)
+    model = m.init_params(device="cpu", seed=0)
+    caches = m.init_caches(SERVE_B, SERVE_LEN, device="cpu")
+    out, caches = serve_run(cfg, model, caches, lambda d: {
+        k: torch.as_tensor(v) for k, v in d.items()})
+    return ([o.numpy() for o in out],
+            {k: v.numpy() for k, v in cache_leaves(caches).items()})
+
+
+def save_block(rec: dict, key: str, t) -> None:
+    """This rank's block of the DTensor ``t`` under ``key`` and its slices
+    of the whole under ``key@idx`` ((start, stop) a dimension)."""
+    from repro_torch.parallel.ax import block_index, mesh_shape
+    from repro_torch.parallel.shardings import local
+
+    mesh = t.device_mesh
+    idx = block_index(t.shape, mesh_shape(mesh), t.placements,
+                      mesh.get_coordinate())
+    rec[key] = local(t).detach().numpy().copy()
+    rec[f"{key}@idx"] = np.asarray([[s.start, s.stop] for s in idx])
+
+
+def serve_leg(rec: dict, arch: str, mesh) -> None:
+    """`serve_run` with the parameters placed by ``param_specs``, the
+    inputs by ``batch_spec``, the caches by ``cache_specs`` on ``mesh``,
+    under ``logical_rules``: this rank's blocks of each logits and of
+    every cache leaf after the last step, under ``serve/arch``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import api
+    from repro_torch.parallel import comm as C
+    from repro_torch.parallel import shardings as SH
+    from repro_torch.parallel.ax import logical_rules
+
+    cfg = get_smoke_config(arch)
+    m = api(cfg)
+    model = m.init_params(device="cpu", seed=0)
+    SH.shard_params(model, SH.to_named(SH.param_specs(model), mesh))
+    caches = m.init_caches(SERVE_B, SERVE_LEN, device="cpu")
+    caches = SH.shard_state(caches, SH.to_named(SH.cache_specs(caches, mesh),
+                                                mesh))
+    with logical_rules(mesh), C.no_functional_collectives():
+        out, caches = serve_run(cfg, model, caches,
+                                lambda d: SH.shard_batch(d, mesh, "cpu"))
+    for j, lg in enumerate(out):
+        save_block(rec, f"serve/{arch}/logits{j}", lg)
+    for k, v in cache_leaves(caches).items():
+        save_block(rec, f"serve/{arch}/cache/{k}", v)
+
+
+def count_leg(rec: dict, mesh, device: str = "cpu") -> None:
+    """The dry-run's count (`launch.dryrun.mesh_count`) of COUNT_ARCHS'
+    COUNT_KINDS steps at COUNT_SHAPE on ``mesh`` (blocks on ``device``):
+    FLOPs, bytes and each collective's kind, bytes and group size, under
+    ``count/arch/kind``.  The ranks run it on the CPU; the fake group's
+    meta count in a subprocess runs it too."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.dryrun import mesh_count, smoke_inputs
+
+    for arch in COUNT_ARCHS:
+        cfg = get_smoke_config(arch)
+        for kind in COUNT_KINDS:
+            model, inputs, _ = smoke_inputs(cfg, kind, device, *COUNT_SHAPE)
+            c = mesh_count(cfg, kind, model, inputs, mesh, live=False)
+            pre = f"count/{arch}/{kind}"
+            rec[f"{pre}/flops"] = np.asarray(c.flops)
+            rec[f"{pre}/bytes"] = np.asarray(c.bytes)
+            rec[f"{pre}/kinds"] = np.asarray([r.kind for r in c.collectives])
+            rec[f"{pre}/nbytes"] = np.asarray(
+                [r.nbytes for r in c.collectives], dtype=np.int64)
+            rec[f"{pre}/groups"] = np.asarray(
+                [r.group_size for r in c.collectives], dtype=np.int64)
 
 
 def splitk_inputs():
@@ -178,10 +329,20 @@ def legs(world: int, out_dir: str) -> dict:
     rec: dict = {}
     t0 = time.perf_counter()
     mesh = make_host_mesh(*STEP_MESH, device="cpu")
-    for arch in STEP_ARCHS:
+    for arch in STEP_ARCHS + MIXER_ARCHS:
         sharded_step(rec, arch, mesh)
     sharded_step(rec, ACCUM_ARCH, mesh, accum=2)
     rec["rank/step_seconds"] = np.asarray(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for arch in SERVE_ARCHS:
+        serve_leg(rec, arch, mesh)
+    rec["rank/serve_seconds"] = np.asarray(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cnt: dict = {}
+    count_leg(cnt, mesh)
+    if rank == 0:
+        rec.update(cnt)
+    rec["rank/count_seconds"] = np.asarray(time.perf_counter() - t0)
     q, k, v, lens = splitk_inputs()
     rec["splitk"] = split_k_decode_attention(
         make_host_mesh(1, world, device="cpu"), q, k, v, lens).numpy()

@@ -5,8 +5,36 @@ compare trees array by array.  Both packages get the same numpy inputs."""
 from __future__ import annotations
 
 import dataclasses
+import gc
+import sys
 
 import numpy as np
+import pytest
+
+MAPS_BEFORE_CLEAR = 20_000
+
+
+def _mappings() -> int:
+    try:
+        with open("/proc/self/maps") as fh:
+            return sum(1 for _ in fh)
+    except OSError:
+        return 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_jax_executables():
+    """A test worker that ran many JAX parity tests holds each compiled
+    executable mapped (three mappings each; tens of thousands after the
+    forest and property tests), and past the kernel's limit of 65,530
+    mappings a process XLA's next compile segfaults and takes the worker
+    down: past MAPS_BEFORE_CLEAR, drop JAX's caches before the importing
+    module's tests (they recompile what they need).  Imported by the
+    test modules that run late in a test run."""
+    if "jax" in sys.modules and _mappings() > MAPS_BEFORE_CLEAR:
+        sys.modules["jax"].clear_caches()
+        gc.collect()
+    yield
 
 
 def port_cfg(jcfg):

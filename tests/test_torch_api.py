@@ -18,7 +18,10 @@ from repro.core.oracle import SetOracle
 from repro_torch.api import CapabilityError, OpBatch, make_index
 from repro_torch.core import deltatree as TDT
 
-from _torch_parity import assert_trees_equal
+from _torch_parity import (
+    assert_trees_equal,
+    few_jax_executables,  # noqa: F401  (autouse)
+)
 
 
 @pytest.mark.parametrize("engine", ["lockstep", "scalar"])

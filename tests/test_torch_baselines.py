@@ -15,7 +15,10 @@ from repro.core.oracle import SetOracle
 from repro_torch.api import OpBatch, make_index
 from repro_torch.core import baselines as TB
 
-from _torch_parity import np_of
+from _torch_parity import (
+    few_jax_executables,  # noqa: F401  (autouse)
+    np_of,
+)
 
 NAMES = ("SortedArray", "StaticVEB", "PointerBST", "HashTable")
 UPDATABLE = ("SortedArray", "StaticVEB", "PointerBST")

@@ -20,6 +20,7 @@ from repro_torch.core import engine as TE
 from _subproc import run_py
 from _torch_parity import (
     assert_cols_equal, assert_trees_equal, jax_arrays, np_of, port_cfg,
+    few_jax_executables,  # noqa: F401  (autouse)
     to_port,
 )
 

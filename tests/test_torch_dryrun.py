@@ -249,12 +249,19 @@ def test_dense_decode_count_by_hand(decode_records):
 
 
 def test_mesh_and_card_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.main(["--mesh", "pod1", "--arch", "granite_8b", "--card", H100,
+    """A mesh the dry-run does not know raises (pod1 / pod2 run: the
+    pod cells are in tests/test_torch_parallel.py); so does a run with
+    no card and no card's row named, on any mesh."""
+    with pytest.raises(ValueError, match="unknown mesh"):
+        D.lower_cell("granite_8b", "decode_32k", "pod3", card=H100)
+    with pytest.raises(SystemExit):
+        D.main(["--mesh", "pod3", "--arch", "granite_8b", "--card", H100,
                 "--out", str(tmp_path)])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            D.main(["--arch", "granite_8b", "--out", str(tmp_path)])
+        for mesh in ("card1", "pod1"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                D.main(["--arch", "granite_8b", "--mesh", mesh, "--out",
+                        str(tmp_path)])
     assert not list(tmp_path.iterdir())
 
 

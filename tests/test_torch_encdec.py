@@ -15,7 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import check_model_leg, jax_model_leg, port_model
+from _torch_parity import (
+    check_model_leg,
+    few_jax_executables,  # noqa: F401  (autouse)
+    jax_model_leg,
+    port_model,
+)
 
 TOL = 1e-5
 ARCH = "whisper_base"

@@ -37,6 +37,7 @@ from repro_torch.distributed import splits as TSP
 
 from _torch_parity import (
     assert_cols_equal, assert_forests_equal, check_invariants, jax_npz,
+    few_jax_executables,  # noqa: F401  (autouse)
     np_of, port_cfg, port_fcfg, prefixed,
 )
 

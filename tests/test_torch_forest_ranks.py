@@ -26,6 +26,7 @@ import pytest
 import _torch_ranks as TR
 from _torch_parity import (
     FOREST_KEY_HI, FOREST_STEPS, forest_cfgs, forest_record,
+    few_jax_executables,  # noqa: F401  (autouse)
     jax_forest_shared, jax_sharded, prefixed, shared_npz,
 )
 

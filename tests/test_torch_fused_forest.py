@@ -31,6 +31,7 @@ from _torch_parity import (
     FOREST_KEY_HI as KEY_HI, FOREST_MAX_ITEMS, FOREST_STEPS as STEPS,
     FOREST_SUCC_K, SCAN_COLS, assert_cols_equal, assert_forests_equal,
     check_invariants, forest_cfgs, forest_seed, forest_trace,
+    few_jax_executables,  # noqa: F401  (autouse)
     jax_forest_shared, np_of, prefixed,
 )
 

@@ -19,7 +19,11 @@ from repro_torch.kernels import ref as TREF
 from repro_torch.kernels import veb_search as TVS
 
 from _subproc import run_py
-from _torch_parity import assert_cols_equal, to_port
+from _torch_parity import (
+    assert_cols_equal,
+    few_jax_executables,  # noqa: F401  (autouse)
+    to_port,
+)
 
 WALK = ("leaf_val", "leaf_b", "final_dn", "hops", "cand")
 ROWS = ("leaf_val", "leaf_b", "next_dn", "cand")

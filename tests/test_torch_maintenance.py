@@ -17,7 +17,12 @@ from repro.core.oracle import SetOracle
 from repro_torch.core import deltatree as TDT
 
 from _subproc import run_py
-from _torch_parity import assert_cols_equal, assert_trees_equal, port_cfg
+from _torch_parity import (
+    assert_cols_equal,
+    assert_trees_equal,
+    few_jax_executables,  # noqa: F401  (autouse)
+    port_cfg,
+)
 
 KEY_HI = 300
 

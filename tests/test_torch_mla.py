@@ -20,7 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import check_model_leg, jax_model_leg
+from _torch_parity import (
+    check_model_leg,
+    few_jax_executables,  # noqa: F401  (autouse)
+    jax_model_leg,
+)
 from repro.configs import get_smoke_config as j_smoke
 from repro.models.layers import attention as JA
 from repro.models.layers import mla as JM

@@ -29,7 +29,12 @@ from repro.models import transformer as JT
 from repro.models.layers import attention as JA
 from repro.models.layers import basic as JB
 from repro.models.registry import api
-from _torch_parity import jax_layer_caches, jax_model_leg, port_model
+from _torch_parity import (
+    few_jax_executables,  # noqa: F401  (autouse)
+    jax_layer_caches,
+    jax_model_leg,
+    port_model,
+)
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import encdec as TE
 from repro_torch.models import registry as TR

@@ -39,6 +39,7 @@ from repro_torch.obs import stats as S
 
 from _torch_parity import (
     SERVE_PRELUDE, assert_stats_equal, jax_npz, np_of, port_cfg, port_fcfg,
+    few_jax_executables,  # noqa: F401  (autouse)
     serve_model, stack_stats, to_port,
 )
 

@@ -25,8 +25,32 @@ process.
 - The reference's fault: JAX's step under a 1 x 1 mesh with
   ``logical_rules`` raises; the port's 1 x 1 mesh path runs and equals
   its unsharded step bit for bit.
+- The other mixers and serving over the mesh (on the same 8 ranks): the
+  sharded step of DeepSeek-V2 (MLA), Mamba2 (SSD), Jamba (hybrid) and
+  Whisper (encoder-decoder) smoke held as above; a prefill of 8 x 16
+  tokens and 3 decode steps of seven families over caches placed by
+  ``cache_specs``, logits and each rank's cache blocks within 1e-5
+  (of the largest |value|, at least 1) of the single process's; every
+  sharded step under ``no_functional_collectives`` (no collective of
+  DTensor's own).
+- The dry-run (one subprocess, `_torch_fake_legs`, which the first xdist
+  worker to import this module starts, so that it runs beside the other
+  tests and the spawn):
+  the fake group's meta count at 4 x 2 of Granite's and Mamba2's train
+  and decode steps equals rank 0's real count exactly (FLOPs, bytes,
+  collectives); ``collective_stats`` of the port's records equals JAX's
+  of the same collectives rendered as HLO at group sizes 2, 16 and 32;
+  ``make_production_mesh`` equals ``jax.make_mesh``'s meshes; one pod2
+  cell per family and step kind gives a JAX-schema record; JAX's own
+  pod1 dry-run raises (the reference's fault) where the port's gives a
+  record.
 """
 
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -37,9 +61,11 @@ import torch
 
 import _torch_parallel_legs as L
 import _torch_ranks as TR
+from _torch_fake_legs import FAKE_CELLS
 from _torch_parity import (
     TRAIN_B,
     TRAIN_OPT,
+    few_jax_executables,  # noqa: F401  (autouse)
     jax_train_leg,
     prefixed,
     shared_npz,
@@ -55,12 +81,15 @@ WORLD = 8
 LOSS_TOL, LEAF_TOL = 1e-4, 5e-3        # tests/test_parallel.py's bounds
 GRAD_RTOL = 1e-3                        # of a leaf's largest |m|
 SPLITK_TOL = 1e-5
+SERVE_TOL = 1e-5                        # logits and cache blocks
 PMEAN_JAX_TOL, PMEAN_EXACT_TOL = 1e-6, 0.05
 METRIC_TOL = 1e-5                       # tests/test_torch_train.py's
 CACHE_MESHES = {"4x2": {"data": 4, "model": 2},
                 "pod2": {"pod": 2, "data": 16, "model": 16}}
 CACHE_SHAPES = ((8, 64), (64, 128), (3, 10))
 HOST_AXES = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+TESTS = str(Path(__file__).resolve().parent)
+SRC = str(Path(TESTS).parent / "src")
 
 
 @pytest.fixture(autouse=True)
@@ -71,22 +100,98 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def _start_fake_legs(d: Path) -> None:
+    """`_torch_fake_legs.main` in a subprocess of its own (the environment
+    `_subproc.run_py` gives one), started, not waited for: it leaves
+    ``d/fake.npz`` when it ends well, ``d/failed`` when not, its output in
+    ``d/out.txt``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("XLA_FLAGS", None)
+    part, done, failed = d / "fake.part.npz", d / "fake.npz", d / "failed"
+    code = (f"import os, sys; sys.path.insert(0, {TESTS!r})\n"
+            f"import _torch_fake_legs as F\n"
+            f"try:\n    F.main({str(part)!r})\n"
+            f"    os.replace({str(part)!r}, {str(done)!r})\n"
+            f"except BaseException:\n"
+            f"    open({str(failed)!r}, 'w').close()\n    raise\n")
+    with open(d / "out.txt", "w") as out:
+        subprocess.Popen([sys.executable, "-c", code], env=env, stdout=out,
+                         stderr=subprocess.STDOUT)
+
+
+def _fake_dir() -> Path | None:
+    """The fake-group subprocess's directory of this xdist run (None
+    outside xdist)."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    return (None if uid is None else
+            Path(tempfile.gettempdir()) / f"torch_parallel_fake_{uid}")
+
+
+def _prestart_fake_legs() -> None:
+    """The first xdist worker to import this module starts the
+    fake-group subprocess, so that it runs while the workers run other
+    tests (its file ``started`` claims it)."""
+    d = _fake_dir()
+    if d is None:
+        return
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        os.close(os.open(d / "started", os.O_CREAT | os.O_EXCL))
+    except FileExistsError:
+        return
+    _start_fake_legs(d)
+
+
+_prestart_fake_legs()
+
+
+def _wait_fake_legs(d: Path, timeout: float = 600) -> dict:
+    deadline = time.monotonic() + timeout
+    while not (d / "fake.npz").exists():
+        assert not (d / "failed").exists(), (d / "out.txt").read_text()
+        assert time.monotonic() < deadline, "the fake-group legs timed out"
+        time.sleep(0.5)
+    with np.load(d / "fake.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Each rank's record of `_torch_parallel_legs.legs` (8 ranks, once
-    per test run, shared by the xdist workers)."""
+def shared(tmp_path_factory):
+    """Each rank's record of `_torch_parallel_legs.legs` (8 ranks) under
+    its rank, and under ``fake/`` `_torch_fake_legs`' record (every count
+    on a fake process group, in one subprocess: started at import by the
+    first xdist worker, else here beside the ranks): once per test run,
+    shared by the xdist workers."""
     def make(path):
         t0 = time.perf_counter()
+        d = _fake_dir()
+        if d is None or not (d / "started").exists():
+            d = Path(f"{path}.fake")
+            d.mkdir(parents=True, exist_ok=True)
+            _start_fake_legs(d)
         recs = TR.spawn_ranks(WORLD, Path(f"{path}.d"), legs=L.legs)
         out = {f"{r}/{k}": v for r, rec in enumerate(recs)
                for k, v in rec.items()}
+        out.update({f"fake/{k}": v
+                    for k, v in _wait_fake_legs(d).items()})
+        shutil.rmtree(d, ignore_errors=True)
         out["wall_seconds"] = np.asarray(time.perf_counter() - t0)
         tmp = f"{path}.part.npz"
         np.savez(tmp, **out)
         Path(tmp).replace(path)
 
-    flat = shared_npz(tmp_path_factory, "torch_parallel_ranks", make)
-    return [prefixed(flat, str(r)) for r in range(WORLD)]
+    return shared_npz(tmp_path_factory, "torch_parallel_ranks", make)
+
+
+@pytest.fixture(scope="module")
+def ranks(shared):
+    return [prefixed(shared, str(r)) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def fake(shared):
+    return prefixed(shared, "fake")
 
 
 def block(full: np.ndarray, spec, mesh_shape: tuple, coord: tuple):
@@ -227,7 +332,8 @@ def test_rank_blocks_are_the_slices_their_placements_name(ranks, arch):
                                           err_msg=f"rank {r} {k}")
 
 
-@pytest.mark.parametrize("arch, accum", [(a, 1) for a in L.STEP_ARCHS]
+@pytest.mark.parametrize("arch, accum", [(a, 1) for a in L.STEP_ARCHS
+                                          + L.MIXER_ARCHS]
                          + [(L.ACCUM_ARCH, 2)])
 def test_sharded_step_matches_single_process(ranks, arch, accum):
     """Loss and gradient norm within 1e-4, every leaf within 5e-3 (JAX's
@@ -235,7 +341,8 @@ def test_sharded_step_matches_single_process(ranks, arch, accum):
     gradient times 1 - b1) within 1e-3 of the leaf's largest of the
     single process's block: the step's update is about lr / 100 a
     parameter (the warm-up's first step), so only the gradient tells a
-    wrong one apart."""
+    wrong one apart.  MIXER_ARCHS are the other mixers: MLA, the SSD,
+    the hybrid and the encoder-decoder."""
     model, opt, met, _ = L.single_step(arch, accum)
     pre = arch if accum == 1 else f"{arch}/a{accum}"
     specs = SH.param_specs(model)
@@ -420,3 +527,111 @@ def test_parallel_exports_are_jax_s():
     assert T.__all__ == J.__all__
     for name in T.__all__:
         assert getattr(T, name) is not None, name
+
+
+# ------------------------------------------- sharded prefill and decode ---
+
+
+def _block_of(rec: dict, key: str, full: np.ndarray) -> np.ndarray:
+    return full[tuple(slice(a, b) for a, b in rec[f"{key}@idx"])]
+
+
+@pytest.mark.parametrize("arch", L.SERVE_ARCHS)
+def test_sharded_prefill_and_decode_match_single_process(ranks, arch):
+    """A prefill of 8 x 16 tokens, then 3 decode steps, on 4 x 2 with the
+    caches placed by ``cache_specs``: each rank's block of every logits
+    (the prefill's last position and each step's) and of every cache
+    leaf after the last step within 1e-5 of the largest |value| of the
+    single process's (at least 1: an SSD state grows along the prompt)
+    of the slice its placement names (the attention and latent caches
+    sharded along their length, the SSD state by head)."""
+    logits, caches = L.single_serve(arch)
+    pre = f"serve/{arch}"
+    for r, rec in enumerate(ranks):
+        for j, want in enumerate(logits):
+            got = rec[f"{pre}/logits{j}"]
+            err = float(np.abs(got - _block_of(rec, f"{pre}/logits{j}",
+                                               want)).max())
+            assert err < SERVE_TOL * max(1.0, float(np.abs(want).max())), \
+                (r, j, err)
+        for k, want in caches.items():
+            key = f"{pre}/cache/{k}"
+            blk = _block_of(rec, key, want)
+            assert rec[key].shape == blk.shape, (r, k)
+            err = float(np.abs(rec[key] - blk).max())
+            assert err < SERVE_TOL * max(1.0, float(np.abs(want).max())), \
+                (r, k, err)
+    # the length-sharded caches: each rank's block is half the positions
+    sharded = [k for k in caches if k.rsplit("/", 1)[-1] in ("k", "ckv")]
+    for k in sharded:
+        idx = ranks[0][f"{pre}/cache/{k}@idx"]
+        axis = 2 if arch == "whisper_base" else 1
+        assert idx[axis][1] - idx[axis][0] == L.SERVE_LEN // 2, k
+
+
+# --------------------------------- the dry-run against a rank, pod meshes ---
+
+
+@pytest.mark.parametrize("kind", L.COUNT_KINDS)
+@pytest.mark.parametrize("arch", L.COUNT_ARCHS)
+def test_dryrun_count_equals_a_real_ranks(ranks, fake, arch, kind):
+    """The fake group's meta count at 4 x 2 equals rank 0's count of the
+    same step on a real gloo group: FLOPs, bytes, and every collective's
+    kind, bytes and group size, in order."""
+    pre = f"count/{arch}/{kind}"
+    real = ranks[0]
+    for k in ("flops", "bytes", "kinds", "nbytes", "groups"):
+        np.testing.assert_array_equal(fake[f"{pre}/{k}"], real[f"{pre}/{k}"],
+                                      err_msg=k)
+    assert int(real[f"{pre}/flops"]) > 0 and len(real[f"{pre}/kinds"]) > 0
+
+
+@pytest.mark.parametrize("n", (2, 16, 32))
+def test_collective_stats_equals_jax(fake, n):
+    """The port's records of a sharded step rendered as HLO lines (kind,
+    dtype, shape, ``replica_groups`` of ``n`` ranks): JAX's
+    ``collective_stats`` of the lines equals the port's of the records,
+    by kind."""
+    import json
+
+    want = json.loads(str(fake[f"stats/{n}/jax"]))
+    got = json.loads(str(fake[f"stats/{n}/port"]))
+    assert got == want
+    assert sum(got["counts"].values()) > 0
+
+
+def test_production_mesh_equals_jax(fake):
+    for tag in ("pod1", "pod2"):
+        assert str(fake[f"mesh/{tag}/port"]) == str(fake[f"mesh/{tag}/jax"])
+
+
+@pytest.mark.parametrize("cell", [f"{a}/{s}" for a, s in FAKE_CELLS])
+def test_pod2_cell_gives_a_record(fake, cell):
+    """One cell per family and step kind at pod2: full widths, depth cut
+    to one pattern period (plus the prologue), JAX's exact-counting probe
+    settings, a train cell at accum_steps 1: a JAX-schema record."""
+    import json
+
+    rec = json.loads(str(fake[f"pod2/{cell}"]))
+    assert rec["status"] == "ok" and rec["mesh"] == "pod2"
+    assert rec["n_chips"] == 512
+    coll = rec["collectives"]
+    assert set(coll) == {"wire_bytes", "counts", "total_wire_bytes"}
+    assert coll["total_wire_bytes"] > 0
+    assert rec["roofline"]["collective_s"] > 0
+    assert rec["roofline"]["flops"] > 0 and rec["cost_analysis"]["flops"] > 0
+
+
+def test_jax_pod_dryrun_raises_where_the_port_gives_a_record(fake):
+    """The reference's fault (ROADMAP Queue 3): JAX's ``lower_cell`` on
+    pod1 (granite_8b, decode_32k, 2 layers) raises ``constrain``'s
+    ValueError; the port's same cell gives a record."""
+    import json
+
+    assert "Auto axes" in str(fake["jax_pod1/error"])
+    rec = json.loads(str(fake["port_pod1"]))
+    assert rec["status"] == "ok" and rec["n_chips"] == 256
+
+
+def test_no_functional_collectives_raises_on_a_dtensor_rule(fake):
+    assert "_c10d_functional" in str(fake["guard/error"])

@@ -27,7 +27,11 @@ from repro_torch.kernels import ref as TREF
 from repro_torch.kernels import veb_search as TVS
 
 from _subproc import run_py
-from _torch_parity import assert_cols_equal, to_port
+from _torch_parity import (
+    assert_cols_equal,
+    few_jax_executables,  # noqa: F401  (autouse)
+    to_port,
+)
 from test_torch_kernels import _churned, _roots
 
 SCAN = ("out", "n", "hops", "more")

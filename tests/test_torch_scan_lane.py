@@ -29,7 +29,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from _torch_parity import deep_tree
+from _torch_parity import (
+    deep_tree,
+    few_jax_executables,  # noqa: F401  (autouse)
+)
 from repro.kernels import ref as JREF
 from repro_torch.core import deltatree as DT
 from repro_torch.core import layout

@@ -38,6 +38,7 @@ from repro_torch.serving import (
 from _torch_parity import (
     SERVE_PRELUDE, SHARDED_CHURN, SHARDED_TRACE, check_pager,
     check_sharded_pager, jax_npz, jax_sharded, prefixed, record_step_views,
+    few_jax_executables,  # noqa: F401  (autouse)
     serve_model,
 )
 

@@ -31,6 +31,7 @@ from repro_torch.serving import LockstepServeEngine, PagerConfig, ServeEngine
 
 from _torch_parity import (
     check_pager, jax_npz, prefixed, serve_model, serve_prelude,
+    few_jax_executables,  # noqa: F401  (autouse)
 )
 
 ARCH = "phi3_5_moe_42b"

@@ -43,6 +43,7 @@ from _torch_parity import (
     SHARDED_PAGER,
     check_pager,
     check_sharded_pager,
+    few_jax_executables,  # noqa: F401  (autouse)
     jax_npz,
     jax_sharded,
     prefixed,

@@ -38,6 +38,7 @@ from _torch_parity import (
     TRAIN_B,
     TRAIN_OPT,
     TRAIN_STEPS,
+    few_jax_executables,  # noqa: F401  (autouse)
     jax_train_leg,
     port_model,
     prefixed,

@@ -31,6 +31,7 @@ from repro_torch.obs.stats import (
 
 from _torch_parity import (
     assert_stats_equal, jax_npz, np_of, port_cfg, stack_stats, to_port,
+    few_jax_executables,  # noqa: F401  (autouse)
 )
 
 KEYS = np.arange(10, 400, 7, dtype=np.int64)
