@@ -45,6 +45,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``torch.searchsorted`` over the sorted live keys plus a
    ``max_out``-wide gather: the same rows on a tree without tombstones;
    the port never calls it).
+   Block sizes: on both Fig. 12 trees, kernels 1 and 2 at every size they
+   are built for (32, 64, 128, 256 threads a block, their ``q_tile``)
+   equal to the plain versions over 2**16 queries with 1 lane in 5
+   rooted at a non-root ΔNode, an unbuilt size refused by the wrapper and
+   the library, then each size timed at K = 1024 and 2**20 in turns.
+   The tall path (ΔNodes above 12 levels: the position table in global
+   memory, no root staged): kernels 1-3 on churned trees of heights 14
+   and 16 (20,000 draws) and 22 (1,500,000 draws, Table 1's UB=N
+   height; each tree splits into several ΔNodes), set and map mode,
+   against their plain
+   versions (the walk at K = 1, 33, 4096 with per-lane roots, the rows
+   walk in every round over 64 lanes, the scan over the comparison's
+   bands at ``max_out`` 16 and 128 and a cap that cuts lanes); at height
+   22 in set mode each timed beside its plain version and bytes bound.
+   Then ``kernels.autotune.sweep_height`` at heights 5, 7 and 9 in both
+   bit modes into ``build/chip_autotune.json``, read back through
+   ``ops.default_q_tile``; each size's time printed.  The seconds of each
+   of these legs are printed.
 3. The main path at the size of the paper's Fig. 12 big tree
    (``benchmarks/fig12_big_tree.py`` with ``benchmarks/common.py``
    ``backend_kwargs``): ``make_index("deltatree", engine="lockstep")`` over
@@ -120,8 +138,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    [1, 5,000,000), 500 queries): ``deltatree`` (height 7, ``max_dnodes``
    1 << 17, buf_cap 16), ``static_veb``, ``pointer_bst``,
    ``sorted_array`` and the ΔTree UB=N (height ceil(log2 n) + 2, 4
-   ΔNodes; the walk kernels take heights 1-12, so a lockstep read on it
-   must raise): mean elements touched and distinct 16- / 128-element
+   ΔNodes), whose lockstep ``search`` of the 500 queries (kernel 2's tall
+   path) must equal the oracle, its hops the plain walk's and, on the
+   first 32, the scalar engine's: mean elements touched and distinct
+   16- / 128-element
    blocks a search (the host touch model), the ordering static_veb <
    sorted_array < pointer_bst at both; on the deltatree row
    ``obs.transfers.compare_model`` replays on the card (ratio 1.0 exactly
@@ -318,7 +338,6 @@ import argparse
 import dataclasses
 import json
 import math
-import re
 import statistics
 import subprocess
 import sys
@@ -365,6 +384,15 @@ SIMPLE_WALK_MS = {
 }
 WALK_CHECK_HEIGHTS = (3, 4, 5, 8, 12)   # besides Fig. 12's 7
 WALK_CHECK_K = (1, 31, 33, 1000, 4096)  # part-full blocks at every block size
+# the tall path (ΔNodes above 12 levels): (keys drawn in [1, KEY_MAX),
+# max_dnodes) a height; past half a ΔNode's leaves the bulk build splits,
+# so both trees hold child ΔNodes (22: Table 1's UB=N height)
+TALL_TREES = {14: (20_000, 64), 16: (20_000, 64), 22: (1_500_000, 8)}
+TALL_CHECK_K = (1, 33, 4096)
+TALL_ROWS_K = 64          # gathered rows of 2**22 slots each: 64 a round
+AUTOTUNE_HEIGHTS = (5, 7, 9)   # kernels/autotune.py's sweep, both bit modes
+AUTOTUNE_SWEEPS = 3           # sweeps a key: each size's repeated reads
+UBN_SCALAR_Q = 32         # 7.1: UB=N queries also read by the scalar engine
 DEFERRED_STEPS = 10
 BUDGETED_STEPS = 3
 CSRC = "src/repro_torch/kernels/csrc"
@@ -452,36 +480,45 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
-def walk_threads() -> int:
-    """kThreads in csrc/veb_walk.cu: the lanes of a block, which share the
-    staged root ΔNode."""
-    m = re.search(r"constexpr int kThreads = (\d+);",
-                  (ROOT / SOURCE).read_text())
-    check(m is not None, "kThreads not found in veb_walk.cu")
-    return int(m.group(1))
-
-
 def piece_count(height: int) -> int:
     """The vEB pieces a path crosses in a height-``height`` ΔNode
-    (``veb::piece_plan``): 1 for H <= 4, 2 for 5..8, 3 for 9, 4 above."""
+    (``veb::piece_plan``): 1 for H <= 4, 2 for 5..8, 3 for 9, 4 for
+    10..16, up to 8 above."""
     if height <= 4:
         return 1
     return piece_count(height // 2) + piece_count(height - height // 2)
 
 
-def fused_needs(t, height: int, q, roots, max_rounds: int):
+def pos_bytes(height: int, nodes) -> int:
+    """Position-table bytes a kernel reads: up to ``SMEM_HEIGHT`` the
+    whole table (staged a block), above it the entries of the distinct
+    BFS nodes ``nodes`` (a list of index tensors) the lanes visit."""
+    import torch
+
+    from repro_torch.kernels.veb_search import SMEM_HEIGHT
+
+    if height <= SMEM_HEIGHT:
+        return 4 * 2 ** height
+    return 4 * torch.unique(torch.cat(nodes)).numel() if nodes else 0
+
+
+def fused_needs(t, height: int, q, roots, max_rounds: int, block=None):
     """Bytes the fused walk needs on these inputs: every
     distinct (ΔNode, slot) router and child id its lanes read, each once,
-    plus queries, roots, outputs and the position table.  A replay of the
-    blind descent that records addresses.  Also counts the dependent
-    loads from device memory each lane's rounds make: the earlier design
-    read router by router (H a round, one more for the child id); this
-    one reads a piece at a time (`piece_count` a round, the child ids
-    with the last piece) and nothing from the root its block staged.
+    plus queries, roots, outputs and the position table (`pos_bytes`).  A
+    replay of the blind descent that records addresses.  Also counts the
+    dependent loads from device memory each lane's rounds make: the
+    earlier design read router by router (H a round, one more for the
+    child id); this one reads a piece at a time (`piece_count` a round,
+    the child ids with the last piece) and nothing from the root its
+    block of ``block`` lanes (the default block size) staged; on the tall
+    path one more a piece (its root's position first), and no root is
+    staged.
     Returns (bytes, {"old": per-lane loads, "new": per-lane loads})."""
     import torch
 
     from repro_torch.kernels.ref import pos_table, walk_big
+    from repro_torch.kernels.veb_search import DEFAULT_BLOCK, SMEM_HEIGHT
 
     pos = pos_table(height, q.device).long()
     m, ub = t.value.shape
@@ -491,12 +528,13 @@ def fused_needs(t, height: int, q, roots, max_rounds: int):
     act = q != walk_big(t.value.dtype)
     dn = roots.long().clone()
     k = q.numel()
-    block = walk_threads()
+    block = block or DEFAULT_BLOCK
+    tall = height > SMEM_HEIGHT
     staged = roots.long()[torch.arange(k, device=q.device) // block * block]
-    staged = staged.clamp(0, m - 1)
+    staged = torch.full_like(staged, -1) if tall else staged.clamp(0, m - 1)
     old = torch.zeros(k, dtype=torch.long, device=q.device)
     new = torch.zeros_like(old)
-    vidx, cidx = [], []
+    vidx, cidx, nodes = [], [], []
     for _ in range(max_rounds):
         if not bool(act.any()):
             break
@@ -508,12 +546,14 @@ def fused_needs(t, height: int, q, roots, max_rounds: int):
         for _ in range(height):
             addr = d * ub + pos[b]
             vidx.append(addr)
+            nodes.append(b)
             router = vflat[addr]
             lb = torch.where(router != 0, b, lb)
             b = torch.where(b < bottom0, 2 * b + (v >= router).long(), b)
         bottom = lb >= bottom0
         old[lanes] += height + bottom.long()
-        new[lanes] += torch.where(d == staged[lanes], 0, piece_count(height))
+        per_piece = (1 if tall else 0) + torch.where(d == staged[lanes], 0, 1)
+        new[lanes] += per_piece * piece_count(height)
         caddr = d * lc + (lb - bottom0).clamp(min=0)
         cidx.append(caddr[bottom])
         nxt = torch.where(bottom, t.child.reshape(-1)[caddr].long(), -1)
@@ -523,7 +563,7 @@ def fused_needs(t, height: int, q, roots, max_rounds: int):
     distinct_v = torch.unique(torch.cat(vidx)).numel() if vidx else 0
     distinct_c = torch.unique(torch.cat(cidx)).numel() if cidx else 0
     nbytes = (distinct_v * isz + distinct_c * 4 + k * (isz + 4)
-              + k * (2 * isz + 3 * 4) + pos.numel() * 4)
+              + k * (2 * isz + 3 * 4) + pos_bytes(height, nodes))
     return nbytes, {"old": old, "new": new}
 
 
@@ -540,10 +580,11 @@ def rows_needs(rows, height: int, q) -> int:
     bottom0 = 2 ** (height - 1)
     lane = torch.arange(k, device=q.device)
     b = torch.ones(k, dtype=torch.long, device=q.device)
-    idx = []
+    idx, nodes = [], []
     for _ in range(height - 1):
         pr, pl = pos[b], pos[(2 * b).clamp(max=2 * bottom0 - 1)]
         idx += [lane * ubp + pr, lane * ubp + pl]
+        nodes += [b, (2 * b).clamp(max=2 * bottom0 - 1)]
         router = rows[lane, pr]
         internal = (b < bottom0) & (rows[lane, pl] != 0)
         b = torch.where(internal, 2 * b + (q >= router).long(), b)
@@ -551,7 +592,7 @@ def rows_needs(rows, height: int, q) -> int:
     isz = rows.element_size()
     distinct = torch.unique(torch.cat(idx)).numel()
     return (distinct * isz + int((b >= bottom0).sum()) * 4 + k * isz
-            + k * (2 * isz + 2 * 4) + pos.numel() * 4)
+            + k * (2 * isz + 2 * 4) + pos_bytes(height, nodes + [b]))
 
 
 def scan_needs(t, height: int, roots, starts, his, max_out: int,
@@ -579,7 +620,7 @@ def scan_needs(t, height: int, roots, starts, his, max_out: int,
     cand = torch.full_like(starts, big)
     n = torch.zeros_like(starts, dtype=torch.int32)
     done = starts == big
-    vidx, cidx, midx = [], [], []
+    vidx, cidx, midx, nodes = [], [], [], []
     for _ in range(max_rounds):
         if bool(done.all()):
             break
@@ -593,6 +634,7 @@ def scan_needs(t, height: int, roots, starts, his, max_out: int,
         for _ in range(height):
             addr = d * ub + pos[b]
             vidx.append(addr)
+            nodes.append(b)
             router = vflat[addr]
             routers.append(router)
             bs.append(b)
@@ -638,7 +680,7 @@ def scan_needs(t, height: int, roots, starts, his, max_out: int,
 
     nbytes = (distinct(vidx) * isz + distinct(cidx) * 4 + distinct(midx)
               + k * (4 + 2 * isz) + k * max_out * isz + k * (4 + 4 + 1)
-              + pos.numel() * 4)
+              + pos_bytes(height, nodes))
     return nbytes, n
 
 
@@ -1036,6 +1078,270 @@ def walk_height_check(height: int, payload_bits: int, device) -> None:
         f"rounds)")
 
 
+def block_sizes_leg(cfg, t, keys, rng, device, flush, mode: str) -> dict:
+    """Phase 2, kernels 1-2 at every built block size on a Fig. 12 churned
+    tree: ``CHECK_K`` queries, 1 lane in 5 rooted at a live non-root ΔNode
+    (so a block's lanes need not share the root it stages), each size's
+    fused walk and rows walk (over the first round's rows) equal to the
+    plain versions exactly; an unbuilt size refused by the wrapper and by
+    the library.  Then each size timed at ``TIMED_K`` from the root, in
+    turns (sizes in order, then reversed; the mean of the two readings).
+    Returns {kernel: {K: {size: ms}}}."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import veb_search as VS
+
+    h, cap = cfg.height, cfg.walk_round_cap
+    q = kernel_queries(cfg, t, keys, CHECK_K, rng, device)
+    alive = torch.nonzero(t.alive)[:, 0].to(torch.int32)
+    roots = t.root.expand(CHECK_K).clone()
+    pick = torch.as_tensor(rng.integers(0, alive.numel(), roots[::5].numel()),
+                           device=device)
+    roots[::5] = alive[pick]
+    rws, crw = t.value[roots.long()], t.child[roots.long()]
+    want_f = ref.ref_delta_walk_fused(t.value, t.child, roots, q, height=h,
+                                      max_rounds=cap)
+    want_r = ref.ref_veb_walk_rows(rws, crw, q, height=h)
+    for size in VS.BLOCK_SIZES:
+        got_f = VS.veb_walk_fused(t.value, t.child, roots, q, height=h,
+                                  max_rounds=cap, q_tile=size)
+        got_r = VS.veb_walk_rows(rws, crw, q, height=h, q_tile=size)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got_f, want_f)),
+              f"veb_walk_fused != plain at {size} threads a block ({mode})")
+        check(all(torch.equal(a, b) for a, b in zip(got_r, want_r)),
+              f"veb_walk_rows != plain at {size} threads a block ({mode})")
+    try:
+        VS.veb_walk_fused(t.value, t.child, roots, q, height=h,
+                          max_rounds=cap, q_tile=48)
+        check(False, "veb_walk_fused took an unbuilt block size")
+    except ValueError as e:
+        check("block size" in str(e), f"unbuilt block size: {e}")
+    out = [torch.empty_like(x) for x in want_r]
+    fn = VS._kernel_fn(f"veb_walk_rows_{VS._suffix(t.value.dtype)}",
+                       VS._ROWS_ARGS)
+    err = fn(rws.data_ptr(), crw.data_ptr(), q.data_ptr(),
+             VS.pos_table(h, device).data_ptr(), CHECK_K, rws.shape[1],
+             crw.shape[1], h, *(x.data_ptr() for x in out), 48,
+             torch.cuda.current_stream().cuda_stream)
+    check(err != 0, "the library launched an unbuilt block size")
+    log(f"{mode}: kernels 1-2 equal their plain versions at "
+        f"{', '.join(map(str, VS.BLOCK_SIZES))} threads a block (K = "
+        f"{CHECK_K}, 1 lane in 5 at a non-root ΔNode); 48 refused "
+        f"(wrapper, library error {err})")
+    times = {"fused": {}, "rows": {}}
+    order = list(VS.BLOCK_SIZES) + list(VS.BLOCK_SIZES)[::-1]
+    for k in TIMED_K:
+        qk = kernel_queries(cfg, t, keys, k, rng, device)
+        rk = t.root.expand(k).contiguous()
+        rws_k, crw_k = t.value[rk.long()], t.child[rk.long()]
+        calls = {
+            "fused": lambda size: VS.veb_walk_fused(
+                t.value, t.child, rk, qk, height=h, max_rounds=cap,
+                q_tile=size),
+            "rows": lambda size: VS.veb_walk_rows(rws_k, crw_k, qk, height=h,
+                                                  q_tile=size)}
+        reps = 20 if k == BATCH else 5
+        for name, call in calls.items():
+            got = {size: [] for size in VS.BLOCK_SIZES}
+            for size in order:
+                got[size].append(cuda_ms(lambda: call(size), reps, flush))
+            times[name][k] = {size: statistics.fmean(v)
+                              for size, v in got.items()}
+            log(json.dumps({"table": f"veb_walk_{name} block sizes",
+                            "mode": mode, "K": k, "ms": times[name][k],
+                            "readings": got}))
+    return times
+
+
+def tall_tree(height: int, payload_bits: int, rng, device, size=None):
+    """A tall tree (``size``: draws and ΔNodes, else ``TALL_TREES``) on
+    the card after one eager update batch of 1024 inserts and deletes
+    (tombstones, grown leaves)."""
+    import numpy as np
+
+    from repro_torch.core import deltatree as DT
+
+    n, max_dnodes = size or TALL_TREES[height]
+    cfg = DT.TreeConfig(height=height, max_dnodes=max_dnodes, buf_cap=16,
+                        payload_bits=payload_bits, engine="lockstep")
+    vals = np.unique(rng.integers(1, KEY_MAX, n).astype(np.int32))
+    t = DT.bulk_build(cfg, vals, vals % 4096 if payload_bits else None,
+                      device=device)
+    kinds = mixed_kinds(rng, BATCH, 100)
+    qk = rng.integers(1, KEY_MAX, BATCH).astype(np.int32)
+    qk[kinds == 2] = rng.choice(vals, int((kinds == 2).sum()))
+    t, _, _ = DT.update_batch(cfg, t, kinds, qk, qk % 4096)
+    check(not bool(t.alloc_fail), f"arena exhausted at height {height}")
+    check(int(t.alive.sum()) > 1, f"one ΔNode at height {height}")
+    return cfg, t, vals
+
+
+def tall_check(height: int, payload_bits: int, rng, device, flush) -> dict:
+    """Phase 2, kernels 1-3 on the tall path (the position table in
+    global memory, no root staged) on a `tall_tree`:
+    the fused walk at ``TALL_CHECK_K`` queries (1 lane in 5 at a live
+    non-root ΔNode),
+    ``veb_walk_rows`` in every round of the per-round walk over
+    ``TALL_ROWS_K`` lanes, the scan over ``check_lanes``' bands at
+    ``max_out`` 16 and 128 and a cap that cuts lanes, each equal to its
+    plain version exactly.  At height 22 in set mode each kernel is then
+    timed beside its plain version and its bytes bound: the fused walk at
+    K = 1024 from the root, the rows walk over those lanes' root rows at
+    ``TALL_ROWS_K``, the scan at K = 512 over dense bands at ``max_out``
+    128.  Returns the largest difference and the timed rows."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import veb_search as VS
+    from repro_torch.kernels.ops import scan_round_cap
+
+    t0 = time.perf_counter()
+    cfg, t, vals = tall_tree(height, payload_bits, rng, device)
+    build_s = time.perf_counter() - t0
+    h, cap = height, cfg.walk_round_cap
+    where = f"height {h}, payload bits {payload_bits}"
+    q = kernel_queries(cfg, t, vals, max(TALL_CHECK_K), rng, device)
+    alive = torch.nonzero(t.alive)[:, 0].to(torch.int32)
+    roots = t.root.expand(q.numel()).clone()
+    pick = torch.as_tensor(rng.integers(0, alive.numel(), roots[::5].numel()),
+                           device=device)
+    roots[::5] = alive[pick]
+    err = 0
+    for k in TALL_CHECK_K:
+        rk, qk = roots[:k].contiguous(), q[:k].contiguous()
+        got = VS.veb_walk_fused(t.value, t.child, rk, qk, height=h,
+                                max_rounds=cap)
+        want = ref.ref_delta_walk_fused(t.value, t.child, rk, qk, height=h,
+                                        max_rounds=cap)
+        torch.cuda.synchronize()
+        err = max(err, *(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(got, want)))
+        check(err == 0, f"veb_walk_fused != plain ({where}, K={k})")
+    hops = int(got[3].max())
+    rounds, _, _ = check_rows_rounds(t, roots[:TALL_ROWS_K].contiguous(),
+                                     q[:TALL_ROWS_K].contiguous(), h, cap,
+                                     where)
+    st, hi, sroots, n_tomb = check_lanes(cfg, t, vals.size, rng, device)
+    sp, hp = pack_bands(cfg, st, hi, device)
+    cut = 0
+    for max_out, scap in ((16, None), (128, None), (128, TRUNCATING_ROUNDS)):
+        scap = scap or scan_round_cap(h, cfg.max_dnodes, max_out)
+        args = (t.value, t.mark, t.child, sroots, sp, hp)
+        kw = dict(height=h, max_out=max_out, pmask=cfg.pmask,
+                  max_rounds=scap)
+        got = VS.veb_scan_fused(*args, **kw)
+        want = ref.ref_delta_scan_fused(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, *(int((a.long() - b.long()).abs().max())
+                         for a, b in zip(got, want)))
+        check(err == 0, f"veb_scan_fused != plain ({where}, max_out "
+                        f"{max_out}, cap {scap})")
+        cut += int((got[2] == scap).sum())
+    log(f"{where}: kernels 1-3 equal their plain versions on the tall path "
+        f"({int(t.alive.sum())} ΔNodes, {n_tomb} tombstones, built and "
+        f"churned in {build_s:.1f} s; walk K = "
+        f"{', '.join(map(str, TALL_CHECK_K))}, max hops {hops}; rows in all "
+        f"{rounds} rounds of {TALL_ROWS_K} lanes; scan {SCAN_CHECK_K} lanes, "
+        f"{cut} cut by the cap)")
+    rows = {}
+    if h == max(TALL_TREES) and not payload_bits:
+        qk = kernel_queries(cfg, t, vals, BATCH, rng, device)
+        rk = t.root.expand(BATCH).contiguous()
+        rws = t.value[rk[:TALL_ROWS_K].long()]
+        crw = t.child[rk[:TALL_ROWS_K].long()]
+        qr = qk[:TALL_ROWS_K].contiguous()
+        st, hi = scan_bands(rng, vals.size, SCAN_K, "dense", 128)
+        sp, hp = pack_bands(cfg, st, hi, device)
+        sr = t.root.expand(SCAN_K).contiguous()
+        scap = scan_round_cap(h, cfg.max_dnodes, 128)
+        skw = dict(height=h, max_out=128, pmask=cfg.pmask, max_rounds=scap)
+        calls = {
+            "fused": (lambda: VS.veb_walk_fused(t.value, t.child, rk, qk,
+                                                height=h, max_rounds=cap),
+                      lambda: ref.ref_delta_walk_fused(
+                          t.value, t.child, rk, qk, height=h, max_rounds=cap),
+                      fused_needs(t, h, qk, rk, cap)[0], BATCH),
+            "rows": (lambda: VS.veb_walk_rows(rws, crw, qr, height=h),
+                     lambda: ref.ref_veb_walk_rows(rws, crw, qr, height=h),
+                     rows_needs(rws, h, qr), TALL_ROWS_K),
+            "scan": (lambda: VS.veb_scan_fused(t.value, t.mark, t.child, sr,
+                                               sp, hp, **skw),
+                     lambda: ref.ref_delta_scan_fused(t.value, t.mark,
+                                                      t.child, sr, sp, hp,
+                                                      **skw),
+                     scan_needs(t, h, sr, sp, hp, 128, cfg.pmask, scap)[0],
+                     SCAN_K),
+        }
+        for name, (kern, plain, nbytes, k) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            e = max(int((a.long() - b.long()).abs().max())
+                    for a, b in zip(got, want))
+            check(e == 0, f"{name} != plain on the timed tall lanes")
+            rows[name] = dict(height=h, K=k, ms=cuda_ms(kern, 10, flush),
+                              plain_ms=cuda_ms(plain, 2, flush), bytes=nbytes,
+                              bound_ms=bound_ms(nbytes), err=e)
+            log(json.dumps({"table": f"tall {name}", "mode": "set int32",
+                            **rows[name]}))
+    del t
+    torch.cuda.empty_cache()
+    return dict(err=err, rows=rows)
+
+
+def autotune_leg(device) -> dict:
+    """Phase 2, `kernels.autotune.sweep_height` on the card at
+    ``AUTOTUNE_HEIGHTS`` in set and map mode (its defaults: 50,000 draws,
+    batch 1024, best of 3 runs of 10 launches), ``AUTOTUNE_SWEEPS`` times
+    each, so that each size has repeated reads; the size with the least
+    mean is merged into a cache file under build/ (`save_cache`), which
+    must read back through `ops.default_q_tile`.  Returns
+    {"h/mode/bits": {size: [ms a sweep]}} and the seconds."""
+    import os
+
+    from repro_torch.kernels import autotune as AT
+    from repro_torch.kernels.ops import default_q_tile
+
+    t0 = time.perf_counter()
+    path = ROOT / "build" / "chip_autotune.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    out = {}
+    for bits in (0, 12):
+        for h in AUTOTUNE_HEIGHTS:
+            key = AT._key(h, True, 64 if bits else 32)
+            reads = {}
+            for _ in range(AUTOTUNE_SWEEPS):
+                _, timings = AT.sweep_height(h, payload_bits=bits,
+                                             device=device)
+                for size, sec in timings.items():
+                    reads.setdefault(size, []).append(sec * 1e3)
+            best = min(reads, key=lambda size: statistics.fmean(reads[size]))
+            check(AT.save_cache({key: best}, str(path)) == str(path),
+                  "autotune cache not written")
+            out[key] = reads
+            log(json.dumps({"autotune": key, "best": best, "ms": reads}))
+    old = os.environ.get(AT.ENV_CACHE)
+    os.environ[AT.ENV_CACHE] = str(path)
+    try:
+        table = AT.load_cache()
+        check(len(table) == 2 * len(AUTOTUNE_HEIGHTS), f"cache: {table}")
+        for key, best in table.items():
+            h, _, bits = key.split("/")
+            check(default_q_tile(int(h), 12 if bits == "64" else 0) == best,
+                  f"default_q_tile does not read the cache at {key}")
+    finally:
+        if old is None:
+            os.environ.pop(AT.ENV_CACHE, None)
+        else:
+            os.environ[AT.ENV_CACHE] = old
+    seconds = time.perf_counter() - t0
+    log(f"autotune leg: {len(out)} keys x {AUTOTUNE_SWEEPS} sweeps in "
+        f"{seconds:.1f} s, cache {path}")
+    return dict(ms=out, seconds=seconds)
+
+
 def compare_kernels(keys, rng, device, flush) -> dict:
     """Phase 2.  Returns per-kernel rows for the result line (walks timed
     at the main path's batch of 1024, the scan at K = 512) and prints the
@@ -1057,6 +1363,7 @@ def compare_kernels(keys, rng, device, flush) -> dict:
         for bits in (0, 12):
             walk_height_check(height, bits, device)
     deep = [deep_scan_check(bits, device) for bits in (0, 12)]
+    blocks, leg_s = {}, {}
     for bits in (0, 12):
         mode = "map int64" if bits else "set int32"
         cfg, t = churned_tree(keys, bits, rng, device)
@@ -1122,8 +1429,23 @@ def compare_kernels(keys, rng, device, flush) -> dict:
                     rows[name] = r
         scan.append(compare_scan(cfg, t, keys.size, sorted_keys, rng, device,
                                  flush, mode))
+        t0 = time.perf_counter()
+        blocks[mode] = block_sizes_leg(cfg, t, keys, rng, device, flush, mode)
+        leg_s[f"block sizes, {mode}"] = time.perf_counter() - t0
         del t
         torch.cuda.empty_cache()
+    tall = {}
+    for height in TALL_TREES:
+        for bits in (0, 12):
+            t0 = time.perf_counter()
+            r = tall_check(height, bits, rng, device, flush)
+            tall.update(r["rows"])
+            tall["err"] = max(tall.get("err", 0), r["err"])
+            leg_s[f"tall {height}, payload bits {bits}"] = \
+                time.perf_counter() - t0
+    tune = autotune_leg(device)
+    leg_s["autotune"] = tune["seconds"]
+    log(json.dumps({"phase 2 new legs (s)": leg_s}))
     # the result line carries the set-mode dense max_out=128 cell (the
     # default page of Index.range_scan); every cell is in the log
     cell = next(r for r in scan[0]["rows"]
@@ -1132,6 +1454,13 @@ def compare_kernels(keys, rng, device, flush) -> dict:
     rows["scan"] = dict(cell, err=max(x["err"] for x in scan),
                         cells=[r for x in scan for r in x["rows"]],
                         ptxas=usage, deep_paths=deep)
+    for name in ("fused", "rows"):
+        rows[name]["block_ms"] = blocks["set int32"][name][BATCH]
+        rows[name]["err"] = max(rows[name]["err"], tall["err"])
+    rows["scan"]["err"] = max(rows["scan"]["err"], tall["err"])
+    for name in ("fused", "rows", "scan"):
+        rows[name]["tall"] = tall[name]
+    rows["fused"]["autotune_ms"] = tune["ms"]
     return rows
 
 
@@ -2563,7 +2892,7 @@ def forest_kernels(ix, rng, flush) -> dict:
     check(err == 0, f"veb_walk_fused != plain on the fused view, S={s}")
     wb, _ = fused_needs(view, h, q, r, cap)
     lane = torch.arange(FOREST_WALK_K, device=dev)
-    block = walk_threads()
+    block = VS.DEFAULT_BLOCK
     walk_row = dict(ms=cuda_ms(walk, 20, flush),
                     plain_ms=cuda_ms(walk_plain, 3, flush), bytes=wb,
                     bound_ms=bound_ms(wb), err=err,
@@ -2859,6 +3188,57 @@ def deltatree_transfers(ix, q) -> dict:
                 hops_mean=float(np.mean(hops.cpu().numpy())))
 
 
+def ubn_read(big, vals, q, device) -> dict:
+    """7.1, the UB=N ΔTree's lockstep ``search`` of Table 1's queries
+    (one ΔNode of height ceil(log2 n) + 2: the walk kernels' tall path):
+    found equal to the oracle, hops equal to the plain walk's for every
+    query and to the scalar engine's for the first ``UBN_SCALAR_Q`` (it
+    copies the 2**22-slot row to the host a query), through kernel 2 only.
+    Returns the read's host-clocked time, hops and launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Index, IndexSpec
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.veb_search import SMEM_HEIGHT
+
+    cfg, st = big.cfg, big.state
+    check(cfg.height > SMEM_HEIGHT, f"UB=N height {cfg.height}")
+    big.search(q[:8])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    found, hops = big.search(q)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(counts["fused"] == 1 and counts["plain"] == 0
+          and counts["rows"] == 0, f"UB=N read launches: {counts}")
+    check(np.array_equal(found.cpu().numpy(), np.isin(q, vals)),
+          "UB=N search != the oracle")
+    qp = E._walk_queries(cfg, torch.as_tensor(q, device=device))
+    want = ref.ref_delta_walk_fused(st.value, st.child,
+                                    st.root.expand(q.size).contiguous(), qp,
+                                    height=cfg.height,
+                                    max_rounds=cfg.walk_round_cap)
+    check(torch.equal(want[3], hops), "UB=N hops != the plain walk's")
+    scalar = Index(IndexSpec(backend=big.spec.backend,
+                             cfg=dataclasses.replace(cfg, engine="scalar")),
+                   st)
+    sf, sh = scalar.search(q[:UBN_SCALAR_Q])
+    check(torch.equal(sf, found[:UBN_SCALAR_Q])
+          and torch.equal(sh, hops[:UBN_SCALAR_Q]),
+          "UB=N lockstep read != the scalar engine's")
+    log(f"UB=N (height {cfg.height}): lockstep search of {q.size} queries "
+        f"equals the oracle, hops equal the plain walk's (and the scalar "
+        f"engine's on {UBN_SCALAR_Q}); {read_ms:.3f} ms, one kernel 2 launch")
+    return dict(search_ms=read_ms, mean_hops=float(hops.float().mean()),
+                found=int(found.sum()), counts=counts)
+
+
 def table1_phase(seed: int, device) -> dict:
     """7.1: benchmarks/table1_transfers.py --full on the card: 1,048,576
     draws in [1, 5,000,000), 500 queries, its four backends and the ΔTree
@@ -2890,13 +3270,9 @@ def table1_phase(seed: int, device) -> dict:
                      buf_cap=16, engine="lockstep", device=device)
     build_s = time.perf_counter() - t0
     rows.append(dict(table1_row(f"deltatree_ubN(h={h_big})", big, q),
-                     build_s=build_s))
+                     build_s=build_s, **ubn_read(big, vals, q, device)))
     log(json.dumps({"table1": rows[-1]}))
-    try:           # the walk kernels take heights 1..12 (ROADMAP Queue 3)
-        big.search(q[:8])
-        check(False, f"a lockstep read at height {h_big} did not raise")
-    except ValueError as e:
-        check("height" in str(e), f"UB=N read: {e}")
+    ubn = rows[-1]["counts"]["fused"]
     del big
     by = {r["backend"]: r for r in rows}
     for b in ("blocks_b16", "blocks_b128"):
@@ -2908,7 +3284,7 @@ def table1_phase(seed: int, device) -> dict:
     check(fit["r2"] >= 0.98 and len(fit["points"]) == 11,
           f"fit_log_b: {fit}")
     return dict(keys=int(vals.size), queries=int(q.size), rows=rows,
-                deltatree=dt, fit=dict(fit, seconds=fit_s))
+                deltatree=dt, fit=dict(fit, seconds=fit_s), ubn_launches=ubn)
 
 
 def fig12_traffic(seed: int, rate: int, initial, chunked: bool) -> dict:
@@ -3212,7 +3588,8 @@ def comparison_phase(keys, seed: int, device) -> dict:
     log(json.dumps({"metrics_serve": serve}))
     elapsed = time.perf_counter() - t0
     log(f"phase 7 done in {elapsed:.1f} s")
-    launches = (table1["deltatree"]["counts"]["fused"] + fig12["launches"]
+    launches = (table1["deltatree"]["counts"]["fused"]
+                + table1["ubn_launches"] + fig12["launches"]
                 + forest["counts"]["fused"]["fused"]
                 + forest["counts"]["dense"]["fused"]
                 + serve["counts"]["fused"])
@@ -5915,7 +6292,10 @@ def run_phases(seed: int, device):
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": "bytes", "library_ms": None,
                     "searchsorted_ms": r["searchsorted_ms"],
-                    "K": SCAN_K if name == "scan" else BATCH})
+                    "K": SCAN_K if name == "scan" else BATCH,
+                    "tall": r["tall"],
+                    **({} if name == "scan" else
+                       {"block_ms": r["block_ms"]})})
     pa = serve["kernel"]
     out.append({"name": "paged_decode_attention", "route": "cuda",
                 "source": PA_SOURCE,

@@ -69,7 +69,10 @@ class TreeConfig:
     (False), ``maintenance`` takes any policy of `maintenance.policy`,
     ``collect_stats`` makes every read return a trailing ``ReadStats``
     (``collect_transfers`` adds its measured ``TransferStats``), and
-    ``q_tile`` is unused (the CUDA kernels take any batch).
+    ``q_tile`` is the walk kernels' block size (threads a block, one of
+    ``kernels.veb_search.BLOCK_SIZES``; 0 resolves it by
+    ``kernels.ops.default_q_tile``: ``REPRO_TORCH_QTILE``, the autotune
+    table, 64).  The CUDA kernels take any batch size.
     """
 
     height: int = 7

@@ -404,12 +404,14 @@ def _walk_queries(cfg, keys: torch.Tensor) -> torch.Tensor:
 def _lockstep_walk(cfg, t, qpacked: torch.Tensor, root=None):
     """The kernel walk: ``root`` defaults to the tree's root; a (K,)
     tensor seeds each query at its own root.  ``cfg.walk_fused`` picks the
-    fused or the per-round walk, ``cfg.walk_round_cap`` the round bound."""
+    fused or the per-round walk, ``cfg.walk_round_cap`` the round bound,
+    ``cfg.q_tile`` the kernels' block size (0: `ops.default_q_tile`)."""
     from repro_torch.kernels import ops as OPS
 
     return OPS.delta_walk(t.value, t.child, t.root if root is None else root,
                           qpacked, height=cfg.height,
-                          max_rounds=cfg.walk_round_cap, fused=cfg.walk_fused)
+                          max_rounds=cfg.walk_round_cap, fused=cfg.walk_fused,
+                          q_tile=cfg.q_tile or None)
 
 
 def _lockstep_lookup(cfg, t, keys: torch.Tensor):

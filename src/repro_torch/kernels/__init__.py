@@ -10,4 +10,5 @@ of ``repro.kernels``).
 - delta_paged_attention.py — the paged-attention wrapper, likewise
 - ref.py           — the plain PyTorch versions (CPU path, ground truth)
 - ops.py           — the multi-round walk and the scan (public API)
+- autotune.py      — the walks' block size per height (sweep, cache, table)
 """

@@ -6,7 +6,12 @@
 
 namespace veb {
 
-constexpr int kMaxHeight = 12;   // pos table 2**12 int32 = 16 KB of shared memory
+// The tallest ΔNode whose vEB position table a block keeps in shared
+// memory (2**12 int32 = 16 KB); taller ones read it from global memory.
+constexpr int kSmemHeight = 12;
+// The tallest ΔNode the kernels take: its BFS slot indices (< 2**30)
+// stay in int32.
+constexpr int kMaxHeight = 30;
 
 // The successor-candidate identity and the walk sentinel of a row dtype: the
 // tree's ROUTE_LEFT (int32: INT32_MAX; packed int64 map mode: 1 << 62).
@@ -27,22 +32,35 @@ template <> struct Big<int64_t> { static constexpr int64_t value = int64_t(1) <<
 // registers.
 constexpr int kPiece = 4;
 
-// The heights of the pieces a path crosses in a height-h ΔNode (h <= 12),
-// top first, 4 bits each, and their count from bit 16: one piece for
-// h <= 4, two for h = 5..8, three for h = 9, four for h = 10..12.
-__host__ __device__ constexpr int piece_plan(int h) {
-  if (h <= kPiece) return h | 1 << 16;
-  int plan = 0, n = 0;
+// The heights of the pieces a path crosses in a height-h ΔNode (h <= 32),
+// top first, 4 bits each, and their count from bit kPlanCount: one piece
+// for h <= 4, two for h = 5..8, three for h = 9, four for h = 10..16, up
+// to eight above.  A half of height <= 16 splits into quarters of <= 8,
+// and a quarter into pieces of <= 4, as `piece_plan` in
+// tests/test_torch_walk_lane.py recurses.
+constexpr int kPlanCount = 32;
+
+__host__ __device__ constexpr uint64_t piece_plan(int h) {
+  if (h <= kPiece) return uint64_t(h) | uint64_t(1) << kPlanCount;
+  uint64_t plan = 0;
+  int n = 0;
   for (int half = 0; half < 2; ++half) {
     const int x = half ? h - h / 2 : h / 2;
     if (x <= kPiece) {
-      plan |= x << (4 * n++);
-    } else {
-      plan |= (x / 2) << (4 * n++);
-      plan |= (x - x / 2) << (4 * n++);
+      plan |= uint64_t(x) << (4 * n++);
+      continue;
+    }
+    for (int quarter = 0; quarter < 2; ++quarter) {
+      const int y = quarter ? x - x / 2 : x / 2;
+      if (y <= kPiece) {
+        plan |= uint64_t(y) << (4 * n++);
+      } else {
+        plan |= uint64_t(y / 2) << (4 * n++);
+        plan |= uint64_t(y - y / 2) << (4 * n++);
+      }
     }
   }
-  return plan | n << 16;
+  return plan | uint64_t(n) << kPlanCount;
 }
 
 // The storage offset of local BFS node j (root 1) in a piece of height

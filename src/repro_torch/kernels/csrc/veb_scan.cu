@@ -37,6 +37,11 @@
 // * The cap.  A walk that would run past max_rounds stops: the lane keeps
 //   the row it had, with hops = max_rounds and more false, as the plain
 //   version stops it.
+// * Tall ΔNodes (height > veb::kSmemHeight, up to veb::kMaxHeight = 30:
+//   Table 1's UB=N tree is 22) fit no shared memory: the kTall
+//   instantiation reads value, mark and child in place, each slot through
+//   the position table in global memory (InPlace), and allocates nothing
+//   a lane.  The passes, restarts and the cap are the same code.
 //
 // What bounds it on an H100: latency, not bytes (the distinct rows read,
 // inputs and outputs move in well under a microsecond).  A lane waits on
@@ -51,12 +56,15 @@
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 
+#include <type_traits>
+
 #include "veb_common.cuh"
 
 namespace {
 
 using veb::Big;
 using veb::kMaxHeight;
+using veb::kSmemHeight;
 
 constexpr int kStack = 32;              // path entries a lane keeps: one a warp lane
 constexpr int kLanes = 4;               // lanes (warps) a block, fewer where rows fill
@@ -85,10 +93,26 @@ __host__ __device__ inline int smem_bytes(int height, int elt, int lanes) {
   return align16((1 << height) * 4) + (lanes + 1) * row_bytes(height, elt);
 }
 
+// A ΔNode row staged in shared memory, by BFS slot.
 template <typename T> struct Row {
   T* val;          // val[b]: the router at BFS slot b
   uint8_t* mark;   // mark[b]: its deletion mark
   int32_t* child;  // child[b - bottom0]: the ΔNode below bottom slot b
+  __device__ __forceinline__ T v(int b) const { return val[b]; }
+  __device__ __forceinline__ uint8_t m(int b) const { return mark[b]; }
+  __device__ __forceinline__ int32_t c(int j) const { return child[j]; }
+};
+
+// A ΔNode row read in place from the arena (tall ΔNodes): BFS slot b is
+// storage slot pos[b].
+template <typename T> struct InPlace {
+  const T* val;
+  const uint8_t* mark;
+  const int32_t* child;
+  const int32_t* pos;
+  __device__ __forceinline__ T v(int b) const { return val[pos[b]]; }
+  __device__ __forceinline__ uint8_t m(int b) const { return mark[pos[b]]; }
+  __device__ __forceinline__ int32_t c(int j) const { return child[j]; }
 };
 
 template <typename T>
@@ -144,7 +168,8 @@ __device__ __forceinline__ void load_row(const Row<T>& r, const T* __restrict__ 
 // One warp a lane; every thread of the warp runs the lane's loop on the
 // same values, so control flow stays uniform and ballots and shuffles see
 // the whole warp.  Thread t holds entry t of the path stack in registers.
-template <typename T>
+// kTall: rows are read in place (InPlace) and nothing is staged.
+template <typename T, bool kTall>
 __global__ void __launch_bounds__(kLanes * 32)
 scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
                   const int32_t* __restrict__ child, const int32_t* __restrict__ roots,
@@ -153,20 +178,26 @@ scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
                   int max_rounds, T pmask, T* __restrict__ out, int32_t* __restrict__ n_out,
                   int32_t* __restrict__ hops_out, uint8_t* __restrict__ more_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using R = std::conditional_t<kTall, InPlace<T>, Row<T>>;
   const int ub = (1 << height) - 1, lc = 1 << (height - 1), bottom0 = lc;
   const int lanes = blockDim.x >> 5;
   const int w = threadIdx.x >> 5, t = threadIdx.x & 31;
-  int* s_bfs = reinterpret_cast<int*>(smem);
-  unsigned char* rows = smem + align16((1 << height) * 4);
-  const int rb = row_bytes(height, sizeof(T));
-  const Row<T> root_row = row_at<T>(rows, height);
-  const Row<T> own = row_at<T>(rows + (1 + w) * rb, height);
-  for (int b = threadIdx.x + 1; b <= ub; b += blockDim.x) s_bfs[pos[b]] = b;
   const int first = blockIdx.x * lanes;
-  const int root_dn = min(max(roots[min(first, k - 1)], 0), m - 1);
-  __syncthreads();
-  load_row(root_row, value, mark, child, s_bfs, root_dn, ub, lc, threadIdx.x, blockDim.x);
-  __syncthreads();
+  int* s_bfs = nullptr;
+  Row<T> root_row{}, own{};
+  int root_dn = -1;  // the staged root's ΔNode (none for kTall)
+  if constexpr (!kTall) {
+    s_bfs = reinterpret_cast<int*>(smem);
+    unsigned char* rows = smem + align16((1 << height) * 4);
+    const int rb = row_bytes(height, sizeof(T));
+    root_row = row_at<T>(rows, height);
+    own = row_at<T>(rows + (1 + w) * rb, height);
+    for (int b = threadIdx.x + 1; b <= ub; b += blockDim.x) s_bfs[pos[b]] = b;
+    root_dn = min(max(roots[min(first, k - 1)], 0), m - 1);
+    __syncthreads();
+    load_row(root_row, value, mark, child, s_bfs, root_dn, ub, lc, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
   const int i = first + w;
   if (i >= k) return;
 
@@ -189,14 +220,18 @@ scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
       const int budget = max_rounds - hops;
       int depth = j, lb = 1;
       T lv = 0;
-      Row<T> r = root_row;
+      R r{};
       bool cut = false;
       for (;;) {             // one ΔNode a round, as the plain version counts
         if (++depth > budget) {
           cut = true;
           break;
         }
-        if (dn == own_dn) {
+        if constexpr (kTall) {
+          r = InPlace<T>{value + static_cast<int64_t>(dn) * ub,
+                         mark + static_cast<int64_t>(dn) * ub,
+                         child + static_cast<int64_t>(dn) * lc, pos};
+        } else if (dn == own_dn) {
           r = own;
         } else if (dn == root_dn) {
           r = root_row;
@@ -207,15 +242,15 @@ scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
           own_dn = dn;
           r = own;
         }
-        // the blind descent of ref.ref_delta_walk_fused over the staged
-        // row, folding each occupied router once a later one replaces it
+        // the blind descent of ref.ref_delta_walk_fused over the row,
+        // folding each occupied router once a later one replaces it
         // as the leaf
         int b = 1;
         lb = 1;
         lv = 0;
         T rc = big, gt = Top<T>::value;
         for (int l = 0; l < height; ++l) {
-          const T x = r.val[b];
+          const T x = r.v(b);
           if (x != 0) {
             if (lv != 0 && q < lv && lv < rc) rc = lv;
             lb = b;
@@ -232,7 +267,7 @@ scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
           st_above = fold;
         }
         if (rc < fold) fold = rc;
-        const int nxt = lb >= bottom0 ? r.child[lb - bottom0] : -1;
+        const int nxt = lb >= bottom0 ? r.c(lb - bottom0) : -1;
         if (nxt < 0) break;
         dn = min(max(nxt, 0), m - 1);
       }
@@ -242,7 +277,7 @@ scan_fused_kernel(const T* __restrict__ value, const uint8_t* __restrict__ mark,
       }
       const int len = depth;
       hops += len;
-      const bool live = lv != 0 && r.mark[lb] == 0;
+      const bool live = lv != 0 && r.m(lb) == 0;
       if (verify) {          // VERIFY settles: emit, fill the row, or chase
         if (live && (lv | pmask) == q) {
           if (n >= max_out) {
@@ -286,11 +321,12 @@ int launch_scan(const void* value, const void* mark, const void* child, const vo
   if (height < 1 || height > kMaxHeight || max_out < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (k > 0) {
+    const bool tall = height > kSmemHeight;
     int lanes = kLanes;
-    while (lanes > 1 && smem_bytes(height, sizeof(T), lanes) > kMaxSmem) --lanes;
-    const int smem = smem_bytes(height, sizeof(T), lanes);
+    while (!tall && lanes > 1 && smem_bytes(height, sizeof(T), lanes) > kMaxSmem) --lanes;
+    const int smem = tall ? 0 : smem_bytes(height, sizeof(T), lanes);
     if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    auto* fn = scan_fused_kernel<T>;
+    auto* fn = tall ? scan_fused_kernel<T, true> : scan_fused_kernel<T, false>;
     if (smem > kDefaultSmem) {
       const cudaError_t e =
           cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

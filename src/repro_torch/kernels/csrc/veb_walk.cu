@@ -19,7 +19,7 @@
 // * Walk vEB pieces, not routers.  A row is stored in vEB order, so a path
 //   through a ΔNode crosses one contiguous piece of at most 15 slots at
 //   each level of the vEB split (veb::piece_plan: 1 piece for H <= 4, 2 for
-//   H = 5..8, 3 for H = 9, 4 for H = 10..12).  A lane loads a whole piece
+//   H = 5..8, 3 for H = 9, 4 for H = 10..16, up to 8 above).  A lane loads a whole piece
 //   in one round trip (16-byte loads issued together, veb::load_run) and
 //   descends through it in registers; with the last piece it also loads
 //   the child ids of that piece's leaves, so the hop costs nothing more.
@@ -32,8 +32,20 @@
 //   whose left child is EMPTY.  At a piece boundary that left child is the
 //   root of the next piece or of its sibling: the lane loads the piece the
 //   router picks together with the sibling's root slot, and decides.
-// * kThreads: 32, 64, 128 and 256 threads a block read within 6 % of one
-//   another at K = 1024 and 2^20 (tools/walk_sweep.py); 64 is kept.
+// * Block sizes: both kernels are built for 32, 64, 128 and 256 threads a
+//   block (BlockSizes) and the wrapper picks one at launch (its q_tile;
+//   kernels/autotune.py sweeps them).  The staged root is only a cache, so
+//   every size gives the same bits.  On an H100 no size beats 64 beyond
+//   the spread of repeated reads (tools/walk_sweep.py, PERF.md), so 64 is
+//   the default.
+// * Tall ΔNodes (height > veb::kSmemHeight, up to veb::kMaxHeight = 30:
+//   Table 1's UB=N tree is 22): the position table stays in global
+//   memory, so a piece costs one more dependent load (its root's
+//   position), and the fused kernel stages no root: every row is read in
+//   place (the kTall instantiations; heights 1-12 compile as before).
+//   Staging the root where it still fits (heights 13-15) copied up to
+//   192 KB a block to serve about 15 slots a lane: 5.6-13x slower at
+//   K = 2^20 and 4-15 % at 1024 (tools/walk_sweep.py --height, PERF.md).
 //
 // What still bounds them: a non-root ΔNode costs two dependent loads that
 // miss the caches when the tree is cold, one for its top piece and one for
@@ -45,6 +57,8 @@
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 
+#include <type_traits>
+
 #include "veb_common.cuh"
 
 namespace {
@@ -52,11 +66,16 @@ namespace {
 using veb::Big;
 using veb::copy_run;
 using veb::kMaxHeight;
+using veb::kPlanCount;
+using veb::kSmemHeight;
 using veb::load_run;
 using veb::pick;
 using veb::pick_id;
 
-constexpr int kThreads = 64;            // threads (queries) a block
+// The block sizes (threads, i.e. queries, a block) each kernel is built
+// for; kernels/veb_search.py's BLOCK_SIZES lists the same.
+template <int... N> struct Sizes {};
+using BlockSizes = Sizes<32, 64, 128, 256>;
 constexpr int kDefaultSmem = 48 * 1024;  // above this only after the opt-in
 
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
@@ -65,8 +84,8 @@ __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 // any elt-aligned address (veb::copy_run keeps the address modulo 16).
 __host__ __device__ constexpr int room(int n, int elt) { return align16(n * elt + 16 - elt); }
 
-// A block's dynamic shared memory: the vEB position table, then (fused
-// kernel) the staged root row and its child ids.
+// A block's dynamic shared memory up to kSmemHeight: the vEB position
+// table, then (fused kernel) the staged root row and its child ids.
 __host__ __device__ constexpr int rows_smem(int height) { return room(1 << height, 4); }
 __host__ __device__ constexpr int fused_smem(int height, int elt) {
   return rows_smem(height) + room((1 << height) - 1, elt) + room(1 << (height - 1), 4);
@@ -117,8 +136,9 @@ __device__ __forceinline__ void fused_piece(const T* row, const int32_t* crow,
 // All walk rounds in one launch: a lane loops until its walk ends inside a
 // ΔNode or it has run max_rounds rounds; a query equal to the sentinel is
 // born resolved.  A resolved lane's state never changes again, so these
-// per-lane loops give the Pallas kernel's tile-wide loop results.
-template <typename T>
+// per-lane loops give the Pallas kernel's tile-wide loop results.  kTall:
+// the position table is read from global memory and nothing is staged.
+template <typename T, int kThreads, bool kTall>
 __global__ void __launch_bounds__(kThreads)
 walk_fused_kernel(const T* __restrict__ value, const int32_t* __restrict__ child,
                   const int32_t* __restrict__ roots, const T* __restrict__ queries,
@@ -137,21 +157,27 @@ walk_fused_kernel(const T* __restrict__ value, const int32_t* __restrict__ child
     v = queries[i];
     dn = roots[i];
   }
-  // the position table and the first lane's root row and child ids, every
-  // copy of the block in flight at once
-  const int sdn = min(max(roots[first], 0), m - 1);
-  unsigned char* area = smem + rows_smem(height);
-  const int* s_pos = copy_run(smem, pos, 1 << height, t, nt);
-  const T* s_row = copy_run(area, value + static_cast<int64_t>(sdn) * ub, ub, t, nt);
-  const int32_t* s_child = copy_run(area + room(ub, sizeof(T)),
-                                    child + static_cast<int64_t>(sdn) * lc, lc, t, nt);
-  veb::wait_copies();
-  __syncthreads();
+  const int* s_pos = pos;
+  const T* s_row = nullptr;
+  const int32_t* s_child = nullptr;
+  int sdn = -1;  // the staged ΔNode (kTall: none)
+  if constexpr (!kTall) {
+    // the position table and the first lane's root row and child ids,
+    // every copy of the block in flight at once
+    sdn = min(max(roots[first], 0), m - 1);
+    s_pos = copy_run(smem, pos, 1 << height, t, nt);
+    unsigned char* area = smem + rows_smem(height);
+    s_row = copy_run(area, value + static_cast<int64_t>(sdn) * ub, ub, t, nt);
+    s_child = copy_run(area + room(ub, sizeof(T)), child + static_cast<int64_t>(sdn) * lc,
+                       lc, t, nt);
+    veb::wait_copies();
+    __syncthreads();
+  }
   if (i >= k) return;
 
   const int bottom0 = 1 << (height - 1);
-  const int plan = veb::piece_plan(height);
-  const int pieces = plan >> 16;
+  const uint64_t plan = veb::piece_plan(height);
+  const int pieces = static_cast<int>(plan >> kPlanCount);
   bool resolved = (v == big);
   T leaf_val = 0;
   int leaf_b = 1;
@@ -161,7 +187,7 @@ walk_fused_kernel(const T* __restrict__ value, const int32_t* __restrict__ child
 
   for (int round = 0; round < max_rounds && !resolved; ++round) {
     const int dnc = min(max(dn, 0), m - 1);
-    const bool staged = dnc == sdn;
+    const bool staged = !kTall && dnc == sdn;
     const T* row = staged ? s_row : value + static_cast<int64_t>(dnc) * ub;
     const int32_t* crow = staged ? s_child : child + static_cast<int64_t>(dnc) * lc;
     int b = 1, lb = 1, nxt = -1;
@@ -249,8 +275,9 @@ __device__ __forceinline__ void rows_piece(const T* row, const int32_t* crow, co
 }
 
 // One full in-ΔNode descent per query over rows gathered by the caller
-// (rows (K, ubp), childrows (K, cp)).
-template <typename T>
+// (rows (K, ubp), childrows (K, cp)).  kTall: the position table is read
+// from global memory.
+template <typename T, int kThreads, bool kTall>
 __global__ void __launch_bounds__(kThreads)
 walk_rows_kernel(const T* __restrict__ rows, const int32_t* __restrict__ childrows,
                  const T* __restrict__ queries, const int32_t* __restrict__ pos,
@@ -258,15 +285,18 @@ walk_rows_kernel(const T* __restrict__ rows, const int32_t* __restrict__ childro
                  int32_t* __restrict__ leaf_b_out, int32_t* __restrict__ next_dn_out,
                  T* __restrict__ cand_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int* s_pos = copy_run(smem, pos, 1 << height, threadIdx.x, blockDim.x);
-  veb::wait_copies();
-  __syncthreads();
+  const int* s_pos = pos;
+  if constexpr (!kTall) {
+    s_pos = copy_run(smem, pos, 1 << height, threadIdx.x, blockDim.x);
+    veb::wait_copies();
+    __syncthreads();
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k) return;
 
   const int bottom0 = 1 << (height - 1);
-  const int plan = veb::piece_plan(height);
-  const int pieces = plan >> 16;
+  const uint64_t plan = veb::piece_plan(height);
+  const int pieces = static_cast<int>(plan >> kPlanCount);
   const T v = queries[i];
   const T* row = rows + static_cast<int64_t>(i) * ubp;
   const int32_t* crow = childrows + static_cast<int64_t>(i) * cp;
@@ -290,81 +320,106 @@ walk_rows_kernel(const T* __restrict__ rows, const int32_t* __restrict__ childro
   cand_out[i] = cand;
 }
 
-// Launches fn with smem bytes of dynamic shared memory, opting in above
-// the default 48 KB.
+// Launches fn in blocks of `threads` with smem bytes of dynamic shared
+// memory, opting in above the default 48 KB.
 template <typename... P, typename... A>
-int launch(void (*fn)(P...), int k, int smem, void* stream, A... args) {
+int launch(void (*fn)(P...), int k, int threads, int smem, void* stream, A... args) {
   if (k > 0) {
     if (smem > kDefaultSmem) {
       const cudaError_t e =
           cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const int blocks = (k + kThreads - 1) / kThreads;
-    fn<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+    const int blocks = (k + threads - 1) / threads;
+    fn<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// go(std::integral_constant<int, N>) for the built block size N equal to
+// threads; any other size is refused.
+template <typename F, int... N>
+int at_block_size(int threads, Sizes<N...>, F go) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  (void)((threads == N ? (err = go(std::integral_constant<int, N>{}), true) : false) || ...);
+  return err;
 }
 
 template <typename T>
 int launch_fused(const void* value, const void* child, const void* roots,
                  const void* queries, const void* pos, int k, int m, int ub, int lc,
                  int height, int max_rounds, void* leaf_val, void* leaf_b,
-                 void* final_dn, void* hops, void* cand, void* stream) {
+                 void* final_dn, void* hops, void* cand, int threads, void* stream) {
   if (height < 1 || height > kMaxHeight) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(walk_fused_kernel<T>, k, fused_smem(height, sizeof(T)), stream,
-                static_cast<const T*>(value), static_cast<const int32_t*>(child),
-                static_cast<const int32_t*>(roots), static_cast<const T*>(queries),
-                static_cast<const int32_t*>(pos), k, m, ub, lc, height, max_rounds,
-                static_cast<T*>(leaf_val), static_cast<int32_t*>(leaf_b),
-                static_cast<int32_t*>(final_dn), static_cast<int32_t*>(hops),
-                static_cast<T*>(cand));
+  const bool tall = height > kSmemHeight;
+  const int smem = tall ? 0 : fused_smem(height, sizeof(T));
+  return at_block_size(threads, BlockSizes{}, [&](auto n) {
+    constexpr int N = decltype(n)::value;
+    return launch(tall ? walk_fused_kernel<T, N, true> : walk_fused_kernel<T, N, false>, k, N,
+                  smem, stream, static_cast<const T*>(value),
+                  static_cast<const int32_t*>(child), static_cast<const int32_t*>(roots),
+                  static_cast<const T*>(queries), static_cast<const int32_t*>(pos), k, m, ub,
+                  lc, height, max_rounds, static_cast<T*>(leaf_val),
+                  static_cast<int32_t*>(leaf_b), static_cast<int32_t*>(final_dn),
+                  static_cast<int32_t*>(hops), static_cast<T*>(cand));
+  });
 }
 
 template <typename T>
 int launch_rows(const void* rows, const void* childrows, const void* queries,
                 const void* pos, int k, int ubp, int cp, int height, void* leaf_val,
-                void* leaf_b, void* next_dn, void* cand, void* stream) {
+                void* leaf_b, void* next_dn, void* cand, int threads, void* stream) {
   if (height < 1 || height > kMaxHeight) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(walk_rows_kernel<T>, k, rows_smem(height), stream,
-                static_cast<const T*>(rows), static_cast<const int32_t*>(childrows),
-                static_cast<const T*>(queries), static_cast<const int32_t*>(pos), k, ubp,
-                cp, height, static_cast<T*>(leaf_val), static_cast<int32_t*>(leaf_b),
-                static_cast<int32_t*>(next_dn), static_cast<T*>(cand));
+  const bool tall = height > kSmemHeight;
+  const int smem = tall ? 0 : rows_smem(height);
+  return at_block_size(threads, BlockSizes{}, [&](auto n) {
+    constexpr int N = decltype(n)::value;
+    return launch(tall ? walk_rows_kernel<T, N, true> : walk_rows_kernel<T, N, false>, k, N,
+                  smem, stream, static_cast<const T*>(rows),
+                  static_cast<const int32_t*>(childrows), static_cast<const T*>(queries),
+                  static_cast<const int32_t*>(pos), k, ubp, cp, height,
+                  static_cast<T*>(leaf_val), static_cast<int32_t*>(leaf_b),
+                  static_cast<int32_t*>(next_dn), static_cast<T*>(cand));
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
+// threads: the block size, one of BlockSizes (cudaErrorInvalidValue
+// otherwise).
+
 int veb_walk_fused_i32(const void* value, const void* child, const void* roots,
                        const void* queries, const void* pos, int k, int m, int ub,
                        int lc, int height, int max_rounds, void* leaf_val, void* leaf_b,
-                       void* final_dn, void* hops, void* cand, void* stream) {
+                       void* final_dn, void* hops, void* cand, int threads, void* stream) {
   return launch_fused<int32_t>(value, child, roots, queries, pos, k, m, ub, lc, height,
-                               max_rounds, leaf_val, leaf_b, final_dn, hops, cand, stream);
+                               max_rounds, leaf_val, leaf_b, final_dn, hops, cand, threads,
+                               stream);
 }
 
 int veb_walk_fused_i64(const void* value, const void* child, const void* roots,
                        const void* queries, const void* pos, int k, int m, int ub,
                        int lc, int height, int max_rounds, void* leaf_val, void* leaf_b,
-                       void* final_dn, void* hops, void* cand, void* stream) {
+                       void* final_dn, void* hops, void* cand, int threads, void* stream) {
   return launch_fused<int64_t>(value, child, roots, queries, pos, k, m, ub, lc, height,
-                               max_rounds, leaf_val, leaf_b, final_dn, hops, cand, stream);
+                               max_rounds, leaf_val, leaf_b, final_dn, hops, cand, threads,
+                               stream);
 }
 
 int veb_walk_rows_i32(const void* rows, const void* childrows, const void* queries,
                       const void* pos, int k, int ubp, int cp, int height, void* leaf_val,
-                      void* leaf_b, void* next_dn, void* cand, void* stream) {
+                      void* leaf_b, void* next_dn, void* cand, int threads, void* stream) {
   return launch_rows<int32_t>(rows, childrows, queries, pos, k, ubp, cp, height, leaf_val,
-                              leaf_b, next_dn, cand, stream);
+                              leaf_b, next_dn, cand, threads, stream);
 }
 
 int veb_walk_rows_i64(const void* rows, const void* childrows, const void* queries,
                       const void* pos, int k, int ubp, int cp, int height, void* leaf_val,
-                      void* leaf_b, void* next_dn, void* cand, void* stream) {
+                      void* leaf_b, void* next_dn, void* cand, int threads, void* stream) {
   return launch_rows<int64_t>(rows, childrows, queries, pos, k, ubp, cp, height, leaf_val,
-                              leaf_b, next_dn, cand, stream);
+                              leaf_b, next_dn, cand, threads, stream);
 }
 
 }  // extern "C"

@@ -18,7 +18,9 @@
 - `delta_scan`     — the emit-cursor range scan: every FIND/VERIFY pass of
   every lane inside one `veb_search.veb_scan_fused` launch.
 
-The JAX package's execution-mode knobs (interpret resolution, the
+The walks' ``q_tile`` is the kernels' block size (`default_q_tile`:
+``REPRO_TORCH_QTILE``, else `kernels.autotune`'s table, else 64).  The JAX
+package's other execution-mode knobs (interpret resolution, the
 ``REPRO_PALLAS_*`` variables, the TPU VMEM budget and 128-lane padding) were
 derived for a TPU and have no counterpart here: the arena is read in place
 on the card and no batch padding is needed.
@@ -27,11 +29,14 @@ on the card and no batch padding is needed.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.veb_search import (
-    pos_table, veb_scan_fused, veb_walk_fused, veb_walk_rows, walk_big,
+    DEFAULT_BLOCK, check_q_tile, pos_table, veb_scan_fused, veb_walk_fused,
+    veb_walk_rows, walk_big,
 )
 from repro_torch.obs import trace as TR
 
@@ -51,6 +56,37 @@ def walk_round_cap(height: int, max_dnodes: int) -> int:
     return 2 * balanced + 8
 
 
+def default_q_tile(height: int | None = None, payload_bits: int = 0, *,
+                   compiled: bool = True) -> int:
+    """The walk kernels' block size: the ``REPRO_TORCH_QTILE`` pin, else
+    the autotuned height→size table (`kernels.autotune`: the
+    ``REPRO_TORCH_AUTOTUNE`` cache file over the committed ``BAKED``
+    winners; ``compiled`` keys the card's entries), else 64.  A pin or a
+    table entry that is not a built size raises."""
+    env = os.environ.get("REPRO_TORCH_QTILE", "").strip()
+    if env:
+        try:
+            tile = int(env)
+        except ValueError:
+            raise ValueError(
+                f"REPRO_TORCH_QTILE must be an integer, got {env!r}"
+            ) from None
+        return check_q_tile(tile, f"REPRO_TORCH_QTILE={env!r}")
+    if height is not None:
+        tile = autotune.best_q_tile(height, compiled=compiled,
+                                    bits=64 if payload_bits else 32)
+        if tile is not None:
+            return check_q_tile(tile, "autotune table")
+    return DEFAULT_BLOCK
+
+
+def _resolve_q_tile(q_tile: int | None, height: int | None = None,
+                    payload_bits: int = 0, *, compiled: bool = True) -> int:
+    if q_tile is None:
+        return default_q_tile(height, payload_bits, compiled=compiled)
+    return check_q_tile(q_tile, "explicit q_tile")
+
+
 def _roots(root, k: int, device) -> torch.Tensor:
     root = torch.as_tensor(root, dtype=torch.int32, device=device)
     return root.expand(k).contiguous()
@@ -58,7 +94,8 @@ def _roots(root, k: int, device) -> torch.Tensor:
 
 def delta_walk(value: torch.Tensor, child: torch.Tensor, root,
                queries: torch.Tensor, *, height: int,
-               max_rounds: int | None = None, fused: bool = True):
+               max_rounds: int | None = None, fused: bool = True,
+               q_tile: int | None = None):
     """Multi-hop ΔTree walk in lockstep rounds over the query frontier.
 
     value/child are the arena arrays (value int32, or int64 packed map
@@ -67,7 +104,9 @@ def delta_walk(value: torch.Tensor, child: torch.Tensor, root,
     (K,) int32 tensor of seeds.  A query equal to ``walk_big(dtype)`` (the
     reserved ROUTE_LEFT key, packed) is born resolved — hops 0, miss leaf,
     no successor candidate.  ``max_rounds=None`` derives the round cap from
-    the arena geometry (`walk_round_cap`).
+    the arena geometry (`walk_round_cap`).  ``q_tile`` is the kernels'
+    block size; None resolves it by `default_q_tile` (the CPU's plain
+    versions ignore it, but a size that is not built raises there too).
 
     Returns per query:
       leaf_val: packed value at the final position (EMPTY on miss)
@@ -81,17 +120,21 @@ def delta_walk(value: torch.Tensor, child: torch.Tensor, root,
     TR.bump("delta_walk.dispatch")
     if max_rounds is None:
         max_rounds = walk_round_cap(height, value.shape[0])
+    q_tile = _resolve_q_tile(q_tile, height,
+                             0 if value.dtype == torch.int32 else 1,
+                             compiled=value.device.type == "cuda")
     queries = queries.to(value.dtype).contiguous()
     roots = _roots(root, queries.shape[0], value.device)
     with TR.annotate("delta_walk"):
         if fused:
             return veb_walk_fused(value, child, roots, queries,
-                                  height=height, max_rounds=int(max_rounds))
+                                  height=height, max_rounds=int(max_rounds),
+                                  q_tile=q_tile)
         return _delta_walk(value, child, roots, queries, height=height,
-                           max_rounds=int(max_rounds))
+                           max_rounds=int(max_rounds), q_tile=q_tile)
 
 
-def _delta_walk(value, child, roots, queries, *, height, max_rounds):
+def _delta_walk(value, child, roots, queries, *, height, max_rounds, q_tile):
     """Per-round walk: gather each lane's current ΔNode row and child
     row, descend it with one `veb_walk_rows` launch, hop, repeat until every
     lane is resolved (one host check per round)."""
@@ -110,7 +153,8 @@ def _delta_walk(value, child, roots, queries, *, height, max_rounds):
         with TR.annotate("delta_walk.round"):
             dnc = dn.clamp(0, value.shape[0] - 1).long()
             lv, lb, nxt, rcand = veb_walk_rows(
-                value[dnc], child[dnc], queries, height=height)
+                value[dnc], child[dnc], queries, height=height,
+                q_tile=q_tile)
         act = ~resolved
         done_now = act & (nxt < 0)
         final_dn = torch.where(done_now, dn, final_dn)
@@ -126,24 +170,28 @@ def _delta_walk(value, child, roots, queries, *, height, max_rounds):
 
 def delta_search(value: torch.Tensor, child: torch.Tensor, root,
                  queries: torch.Tensor, *, height: int,
-                 max_rounds: int | None = None, fused: bool = True):
+                 max_rounds: int | None = None, fused: bool = True,
+                 q_tile: int | None = None):
     """(leaf_val, leaf_b, final_dn) per query — `delta_walk` without the
     hop and candidate columns."""
     lv, lb, dn, _, _ = delta_walk(value, child, root, queries, height=height,
-                                  max_rounds=max_rounds, fused=fused)
+                                  max_rounds=max_rounds, fused=fused,
+                                  q_tile=q_tile)
     return lv, lb, dn
 
 
 def delta_contains(value: torch.Tensor, mark: torch.Tensor,
                    child: torch.Tensor, buf: torch.Tensor, root,
                    queries: torch.Tensor, *, height: int,
-                   max_rounds: int | None = None, fused: bool = True):
+                   max_rounds: int | None = None, fused: bool = True,
+                   q_tile: int | None = None):
     """Paper SEARCHNODE on top of the kernel walk: leaf match & ~mark, else
     the ΔNode's overflow buffer (paper Fig. 8 lines 9..17)."""
     pos = pos_table(height, value.device).long()
     queries = queries.to(value.dtype)
     lv, lb, dn = delta_search(value, child, root, queries, height=height,
-                              max_rounds=max_rounds, fused=fused)
+                              max_rounds=max_rounds, fused=fused,
+                              q_tile=q_tile)
     dn = dn.long()
     leaf_hit = lv == queries
     leaf_live = leaf_hit & ~mark[dn, pos[lb.long()]]
@@ -174,6 +222,10 @@ def delta_scan(value: torch.Tensor, mark: torch.Tensor, child: torch.Tensor,
     or per-lane (K,) seeds.  A lane whose start equals ``walk_big(dtype)``
     is born done.  ``max_rounds=None`` derives the cap from the arena
     geometry (`scan_round_cap`).
+
+    Takes no ``q_tile``: the scan kernel's lane is a warp, and the lanes
+    of a block follow the shared memory its rows take (4, fewer at tall
+    heights; on an H100 1, 2 and 4 lanes a block read alike).
 
     Returns per lane:
       out:  (K, max_out) packed live *leaf* values in (start, hi], key

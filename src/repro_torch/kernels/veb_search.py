@@ -14,6 +14,17 @@ packed values; ordering by packed value equals ordering by key, so the walk
 is unchanged).  Unlike the TPU kernels nothing is padded: the arena is read
 in place, and any batch size is accepted.
 
+Heights: the plain versions take any height >= 1, the kernels 1 to
+``MAX_HEIGHT`` (30: BFS slot indices stay in int32).  Up to
+``SMEM_HEIGHT`` (12) a block keeps the vEB position table (and the fused
+walk its root ΔNode, the scan its rows) in shared memory; taller ΔNodes,
+such as Table 1's UB=N tree (height 22), are read in place through the
+table in global memory.
+
+The walks take ``q_tile``, their block size (threads, one a query): one of
+``BLOCK_SIZES``, each built into the library; `kernels.ops` resolves it
+(`kernels.autotune`).  The scan's lane is a warp and takes none.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 (``launches``), incremented only where the kernel is launched.
 """
@@ -27,12 +38,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import pos_table, walk_big  # noqa: F401
 
-MAX_HEIGHT = 12  # kMaxHeight in csrc/veb_common.cuh
+MAX_HEIGHT = 30    # veb::kMaxHeight in csrc/veb_common.cuh
+SMEM_HEIGHT = 12   # veb::kSmemHeight: taller ΔNodes are read in place
+BLOCK_SIZES = (32, 64, 128, 256)   # BlockSizes in csrc/veb_walk.cu
+DEFAULT_BLOCK = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FUSED_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
-_ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_FUSED_ARGS = [_P] * 5 + [_I] * 6 + [_P] * 5 + [_I, _P]
+_ROWS_ARGS = [_P] * 4 + [_I] * 4 + [_P] * 4 + [_I, _P]
 _SCAN_ARGS = [_P] * 7 + [_I] * 5 + [ctypes.c_longlong] + [_P] * 5
 
 
@@ -67,12 +81,30 @@ def _raise_on(name: str, err: int) -> None:
 
 
 def _check_height(height: int) -> None:
-    if not 1 <= height <= MAX_HEIGHT:
-        raise ValueError(f"height must be in 1..{MAX_HEIGHT}, got {height}")
+    if height < 1:
+        raise ValueError(f"height must be >= 1, got {height}")
+
+
+def check_q_tile(tile, origin: str = "q_tile") -> int:
+    """A block size the walk kernels were built for, else ValueError
+    naming where the size came from."""
+    tile = int(tile)
+    if tile not in BLOCK_SIZES:
+        raise ValueError(f"q_tile must be one of {BLOCK_SIZES} (the walk "
+                         f"kernels' block sizes), got {tile} ({origin})")
+    return tile
+
+
+def _check_kernel(name: str, height: int) -> None:
+    """The heights the CUDA kernels take beyond the plain versions'."""
+    if height > MAX_HEIGHT:
+        raise ValueError(f"{name}: the kernels take heights 1..{MAX_HEIGHT} "
+                         f"(int32 slot indices), got {height}")
 
 
 def veb_walk_rows(rows: torch.Tensor, childrows: torch.Tensor,
-                  queries: torch.Tensor, *, height: int):
+                  queries: torch.Tensor, *, height: int,
+                  q_tile: int = DEFAULT_BLOCK):
     """One full in-ΔNode descent per query.
 
     rows:      (K, UBp) int32/int64 — each query's current ΔNode row (vEB
@@ -83,7 +115,8 @@ def veb_walk_rows(rows: torch.Tensor, childrows: torch.Tensor,
     Returns (leaf_val, leaf_b, next_dn, cand): leaf_val/cand in the row
     dtype, leaf_b/next_dn int32, each (K,).  next_dn = -1 when the walk ends
     inside this ΔNode; cand = min left-turn router (``walk_big`` when no
-    left turn happened).
+    left turn happened).  ``q_tile`` is the kernel's block size (one of
+    ``BLOCK_SIZES``); the plain version on the CPU has none and ignores it.
     """
     _check_height(height)
     if queries.dtype != rows.dtype:
@@ -92,6 +125,8 @@ def veb_walk_rows(rows: torch.Tensor, childrows: torch.Tensor,
         return ref.ref_veb_walk_rows(rows, childrows, queries, height=height)
     if rows.device.type != "cuda":
         raise ValueError(f"veb_walk_rows: unsupported device {rows.device}")
+    _check_kernel("veb_walk_rows", height)
+    check_q_tile(q_tile)
     k, ubp = rows.shape
     cp = childrows.shape[1]
     if childrows.dtype != torch.int32 or childrows.shape[0] != k:
@@ -112,7 +147,7 @@ def veb_walk_rows(rows: torch.Tensor, childrows: torch.Tensor,
         err = fn(rows.data_ptr(), childrows.data_ptr(), queries.data_ptr(),
                  pos.data_ptr(), k, ubp, cp, height, leaf_val.data_ptr(),
                  leaf_b.data_ptr(), next_dn.data_ptr(), cand.data_ptr(),
-                 stream)
+                 q_tile, stream)
     veb_walk_rows.launches += 1
     _raise_on("veb_walk_rows", err)
     return leaf_val, leaf_b, next_dn, cand
@@ -123,7 +158,8 @@ veb_walk_rows.launches = 0
 
 def veb_walk_fused(value: torch.Tensor, child: torch.Tensor,
                    roots: torch.Tensor, queries: torch.Tensor, *,
-                   height: int, max_rounds: int):
+                   height: int, max_rounds: int,
+                   q_tile: int = DEFAULT_BLOCK):
     """All walk rounds in one launch.
 
     value:   (M, UB) arena rows, int32/int64 (read in place)
@@ -134,6 +170,9 @@ def veb_walk_fused(value: torch.Tensor, child: torch.Tensor,
     Returns the `ops.delta_walk` 5-tuple (leaf_val, leaf_b, final_dn, hops,
     cand), each (K,).  Sentinel queries (``walk_big``) are born resolved;
     a lane stops after ``max_rounds`` rounds whether or not it resolved.
+    ``q_tile`` is the kernel's block size (one of ``BLOCK_SIZES``; the
+    lanes of a block share its first lane's staged root); the plain
+    version on the CPU has none and ignores it.
     """
     _check_height(height)
     if queries.dtype != value.dtype:
@@ -143,6 +182,8 @@ def veb_walk_fused(value: torch.Tensor, child: torch.Tensor,
                                         height=height, max_rounds=max_rounds)
     if value.device.type != "cuda":
         raise ValueError(f"veb_walk_fused: unsupported device {value.device}")
+    _check_kernel("veb_walk_fused", height)
+    check_q_tile(q_tile)
     m, ub = value.shape
     lc = child.shape[1]
     k = queries.shape[0]
@@ -168,7 +209,7 @@ def veb_walk_fused(value: torch.Tensor, child: torch.Tensor,
                  queries.data_ptr(), pos.data_ptr(), k, m, ub, lc, height,
                  int(max_rounds), leaf_val.data_ptr(), leaf_b.data_ptr(),
                  final_dn.data_ptr(), hops.data_ptr(), cand.data_ptr(),
-                 stream)
+                 q_tile, stream)
     veb_walk_fused.launches += 1
     _raise_on("veb_walk_fused", err)
     return leaf_val, leaf_b, final_dn, hops, cand
@@ -194,9 +235,10 @@ def veb_scan_fused(value: torch.Tensor, mark: torch.Tensor,
     Returns (out (K, max_out) packed ascending with ``walk_big`` padding,
     n (K,) int32, hops (K,) int32, more (K,) bool): the contract of
     `ref.ref_delta_scan_fused`, which documents the passes.  The kernel
-    runs a lane on a warp, four lanes a block, and walks a pass only from
-    where its path leaves the last one; ``hops`` still counts every round
-    the plain version runs.
+    runs a lane on a warp, four lanes a block (fewer where tall rows fill
+    the shared memory), and walks a pass only from where its path leaves
+    the last one; ``hops`` still counts every round the plain version
+    runs.
     """
     _check_height(height)
     if starts.dtype != value.dtype or his.dtype != value.dtype:
@@ -210,6 +252,7 @@ def veb_scan_fused(value: torch.Tensor, mark: torch.Tensor,
                                         max_out=max_out, pmask=pmask)
     if value.device.type != "cuda":
         raise ValueError(f"veb_scan_fused: unsupported device {value.device}")
+    _check_kernel("veb_scan_fused", height)
     m, ub = value.shape
     lc = child.shape[1]
     k = starts.shape[0]

@@ -90,6 +90,103 @@ def test_cuda_kernels_equal_plain(cuda, height, payload_bits):
     assert rounds > 1
 
 
+def _churned(cuda, height, payload_bits, n_keys, key_hi, max_dnodes, seed):
+    cfg = TDT.TreeConfig(height=height, buf_cap=16, max_dnodes=max_dnodes,
+                         payload_bits=payload_bits, engine="lockstep")
+    rng = np.random.default_rng(seed)
+    vals = np.unique(rng.integers(1, key_hi, n_keys))
+    t = TDT.bulk_build(cfg, vals, vals % 4096 if payload_bits else None,
+                       device=cuda)
+    kinds = rng.choice([1, 2], 512).astype(np.int32)
+    keys = rng.integers(1, key_hi, 512).astype(np.int32)
+    t, _, _ = TDT.update_batch(cfg, t, kinds, keys, keys % 4096)
+    assert not bool(t.alloc_fail) and int(t.alive.sum()) > 1
+    q = cfg.qpack(torch.as_tensor(rng.integers(1, key_hi + 10_000, 4096)
+                                  .astype(np.int32), device=cuda))
+    q[:7] = TVS.walk_big(cfg.vdtype)
+    alive = torch.nonzero(t.alive)[:, 0].to(torch.int32)
+    roots = t.root.expand(q.shape[0]).clone()
+    pick = rng.integers(0, alive.numel(), roots[::5].numel())
+    roots[::5] = alive[torch.as_tensor(pick, device=cuda)]
+    return cfg, t, roots, q
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
+def test_cuda_walk_block_sizes_equal_plain(cuda, block):
+    """Kernels 1 and 2 at each built block size (``q_tile``) equal their
+    plain versions exactly at heights 5 and 12 (2 and 4 vEB pieces), set
+    and map mode, with per-query roots (a block's lanes need not share the
+    root it stages) and part-full blocks; an unbuilt size raises."""
+    for height in (5, 12):
+        for payload_bits in (0, 12):
+            cfg, t, roots, q = _churned(
+                cuda, height, payload_bits, 20_000, 200_000,
+                max(256, 6 * 20_000 // 2 ** (height - 1)), height + block)
+            cap = cfg.walk_round_cap
+            for k in (1, block - 1, block + 1, 4096):
+                args = (t.value, t.child, roots[:k].contiguous(),
+                        q[:k].contiguous())
+                got = TVS.veb_walk_fused(*args, height=height, max_rounds=cap,
+                                         q_tile=block)
+                want = TREF.ref_delta_walk_fused(*args, height=height,
+                                                 max_rounds=cap)
+                _equal(want, got, WALK, ("fused", height, k))
+            dnc = roots.long()
+            rows, crows = t.value[dnc], t.child[dnc]
+            got = TVS.veb_walk_rows(rows, crows, q, height=height,
+                                    q_tile=block)
+            want = TREF.ref_veb_walk_rows(rows, crows, q, height=height)
+            _equal(want, got, ROWS, ("rows", height))
+    with pytest.raises(ValueError, match="block size"):
+        TVS.veb_walk_rows(rows, crows, q, height=12, q_tile=block + 1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("payload_bits", [0, 12])
+@pytest.mark.parametrize("height", [13, 16, 22])
+def test_cuda_tall_kernels_equal_plain(cuda, height, payload_bits):
+    """Kernels 1-3 above height 12 (the position table in global memory;
+    the fused walk stages the root at 13, where it fits, and not at 16 or
+    22) equal their plain versions exactly on churned trees
+    of several ΔNodes: the fused walk, the rows walk over each lane's
+    first ΔNode (64 lanes at height 22: a row is 2**22 slots), and the
+    scan at a full cap and at one that cuts lanes."""
+    from repro_torch.kernels import ops as TOPS
+
+    n_keys, max_dnodes = {13: (20_000, 64), 16: (40_000, 16),
+                          22: (1_500_000, 8)}[height]
+    cfg, t, roots, q = _churned(cuda, height, payload_bits, n_keys, 5_000_000,
+                                max_dnodes, height)
+    cap = cfg.walk_round_cap
+    got = TVS.veb_walk_fused(t.value, t.child, roots, q, height=height,
+                             max_rounds=cap)
+    want = TREF.ref_delta_walk_fused(t.value, t.child, roots, q,
+                                     height=height, max_rounds=cap)
+    _equal(want, got, WALK, ("fused", height))
+    assert int(got[3].max()) >= 2
+    k = 64 if height > 16 else 1024
+    dnc = roots[:k].long()
+    rows, crows = t.value[dnc], t.child[dnc]
+    got = TVS.veb_walk_rows(rows, crows, q[:k].contiguous(), height=height)
+    want = TREF.ref_veb_walk_rows(rows, crows, q[:k].contiguous(),
+                                  height=height)
+    _equal(want, got, ROWS, ("rows", height))
+    rng = np.random.default_rng(height)
+    st = rng.integers(0, 5_000_000, 512).astype(np.int32)
+    hi = (st + rng.integers(1, 50_000, 512)).astype(np.int32)
+    sp = cfg.qpack(torch.as_tensor(st, device=cuda)).contiguous()
+    hp = cfg.qpack(torch.as_tensor(hi, device=cuda)).contiguous()
+    sr = roots[:512].contiguous()
+    for max_rounds in (TOPS.scan_round_cap(height, max_dnodes, 32),
+                       41):
+        args = (t.value, t.mark, t.child, sr, sp, hp)
+        kw = dict(height=height, max_out=32, pmask=cfg.pmask,
+                  max_rounds=max_rounds)
+        _equal(TREF.ref_delta_scan_fused(*args, **kw),
+               TVS.veb_scan_fused(*args, **kw), SCAN, ("scan", max_rounds))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("walk_fused", [True, False])
 def test_cuda_index_equals_cpu_index(cuda, walk_fused):

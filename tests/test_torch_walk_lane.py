@@ -11,13 +11,19 @@ against the JAX package's Pallas kernels in interpret mode):
   loads in one round trip and descends through in registers; with the
   last piece come the child ids of its leaves;
 * the fused kernel stages the root ΔNode of each block's first lane in
-  shared memory, so a lane reads that ΔNode without a round trip;
+  shared memory, so a lane reads that ΔNode without a round trip; the
+  kernels are built for every block size in ``BlockSizes`` (32-256), and
+  the staged root is only a cache, so each size gives the same bits;
 * ``veb_walk_rows`` stops at the first node whose left child is EMPTY; at
   a piece boundary that child is the root of the next piece or of its
-  sibling, loaded together with the piece the router picks.
+  sibling, loaded together with the piece the router picks;
+* above height 12 (the tall path, up to 30) the position table stays in
+  global memory, so each piece costs one more round trip, and the fused
+  kernel stages no root: every row is read in place; the plan
+  (``veb::piece_plan``, 64 bits) crosses up to 8 pieces.
 
 Trees: churned (bulk build, then eager update batches that leave
-tombstones) at heights 3-12 in set and map mode, and random arenas at
+tombstones) at heights 3-16 in set and map mode, and random arenas at
 every height 1-12 (heights 1 and 2 build no tree: a ΔNode holds at most
 two leaves there); sentinel lanes, per-lane roots at non-root ΔNodes and
 every round cap from 1 to the largest lane's need.
@@ -35,6 +41,7 @@ from repro.kernels import veb_search as JVS
 from repro_torch.core import deltatree as DT
 from repro_torch.core import layout
 from repro_torch.kernels import ref as TREF
+from repro_torch.kernels import veb_search as VS
 
 WALK = ("leaf_val", "leaf_b", "final_dn", "hops", "cand")
 ROWS = ("leaf_val", "leaf_b", "next_dn", "cand")
@@ -44,11 +51,15 @@ SOURCE = (Path(__file__).resolve().parents[1]
           / "src/repro_torch/kernels/csrc/veb_walk.cu")
 
 
-def block_threads() -> int:
-    """kThreads in csrc/veb_walk.cu: the lanes that share a staged root."""
-    m = re.search(r"constexpr int kThreads = (\d+);", SOURCE.read_text())
-    assert m, "kThreads not found in veb_walk.cu"
-    return int(m.group(1))
+def block_sizes() -> tuple:
+    """``BlockSizes`` in csrc/veb_walk.cu: the block sizes the kernels are
+    built for (the lanes of a block share a staged root); the wrapper's
+    ``BLOCK_SIZES`` must list the same."""
+    m = re.search(r"using BlockSizes = Sizes<([\d, ]+)>;", SOURCE.read_text())
+    assert m, "BlockSizes not found in veb_walk.cu"
+    sizes = tuple(int(x) for x in m.group(1).split(","))
+    assert sizes == VS.BLOCK_SIZES and VS.DEFAULT_BLOCK in sizes
+    return sizes
 
 
 def piece_plan(h: int) -> list:
@@ -58,6 +69,26 @@ def piece_plan(h: int) -> list:
     if h <= PIECE:
         return [h]
     return [p for x in (h // 2, h - h // 2) for p in piece_plan(x)]
+
+
+def cuda_piece_plan(h: int) -> list:
+    """veb::piece_plan as csrc/veb_common.cuh computes it — halves,
+    quarters, then pieces of <= PIECE, 4 bits a piece and the count from
+    bit 32 of a 64-bit word — decoded."""
+    if h <= PIECE:
+        plan = h | 1 << 32
+    else:
+        plan = n = 0
+        for x in (h // 2, h - h // 2):
+            parts = [x] if x <= PIECE else [
+                p for y in (x // 2, x - x // 2)
+                for p in ([y] if y <= PIECE else [y // 2, y - y // 2])]
+            for p in parts:
+                plan |= p << (4 * n)
+                n += 1
+        plan |= n << 32
+    assert plan < 1 << 64
+    return [(plan >> (4 * q)) & 15 for q in range(plan >> 32)]
 
 
 def piece_pos(p: int, j: int) -> int:
@@ -75,11 +106,15 @@ def piece_pos(p: int, j: int) -> int:
 class _Arena:
     """A tree's arrays as numpy, read the way the kernels read them: a
     piece at a time from the storage-order row, counting the round trips
-    to device memory (a staged row costs none)."""
+    to device memory (a staged row costs none; above height 12 the piece
+    root's position is one more, read from the table in global memory,
+    and no root is staged)."""
 
     def __init__(self, value, child, height):
         self.value, self.child = value.numpy(), child.numpy()
         self.h = height
+        self.tall = height > VS.SMEM_HEIGHT
+        self.stages = not self.tall
         self.bottom0 = 1 << (height - 1)
         self.pos = layout.veb_pos_table(height)
         self.plan = piece_plan(height)
@@ -100,7 +135,7 @@ class _Arena:
         if last:
             c0 = (root << (p - 1)) - self.bottom0
             c = [int(x) for x in crow[c0:c0 + (1 << (p - 1))]]
-        self.trips += 0 if staged else 1
+        self.trips += (1 if self.tall else 0) + (0 if staged else 1)
         return r, c
 
     def fused_round(self, dn, v, staged):
@@ -138,7 +173,7 @@ class _Arena:
             go = 0 if head else (1 if v >= x else 0)
             root = 1 if head else 2 * b + go
             r, c = self.load(row, crow, root, p, last, staged=True)
-            trips += 1                       # sibling slot in the same trip
+            trips += 2 if self.tall else 1   # sibling slot in the same trip
             if not head:
                 left = int(row[self.pos[2 * b]]) if go else r[1]
                 if left == 0:                # b is the leaf
@@ -164,18 +199,20 @@ class _Arena:
 
 
 def model_fused(value, child, roots, queries, *, height, max_rounds,
-                block=None):
-    """The fused kernel lane by lane, shaped as `ref_delta_walk_fused`'s
-    outputs; also returns the round trips to device memory the lanes made
-    over their rounds (a ΔNode staged for the lane's block costs none)."""
-    block = block or block_threads()
+                block=VS.DEFAULT_BLOCK):
+    """The fused kernel lane by lane at ``block`` threads a block, shaped
+    as `ref_delta_walk_fused`'s outputs; also returns the round trips to
+    device memory the lanes made over their rounds (a ΔNode staged for the
+    lane's block costs none; a tall root, never staged, costs as much as
+    any ΔNode)."""
     a = _Arena(value, child, height)
     k = queries.shape[0]
     out = [np.zeros(k, a.value.dtype), np.ones(k, np.int32),
            roots.numpy().astype(np.int32).copy(), np.zeros(k, np.int32),
            np.full(k, a.big, a.value.dtype)]
     for i in range(k):
-        staged_dn = a.clamp(roots[i // block * block])
+        staged_dn = (a.clamp(roots[i // block * block]) if a.stages
+                     else None)
         v, dn = int(queries[i]), int(roots[i])
         cand, hops = a.big, 0
         resolved = v == a.big
@@ -214,22 +251,27 @@ def _equal(want, got, names, where=""):
         assert torch.equal(a, b), (where, name, a, b)
 
 
+# keys a tall tree draws: enough for child ΔNodes after the churn
+TALL_KEYS = {13: 3000, 14: 6000, 16: 20_000}
+
+
 def _tree(height, payload_bits, seed, max_dnodes=None):
     """A port tree on the CPU after bulk build and three eager update
     batches of inserts and deletes (deletes leave tombstones, inserts grow
-    leaves)."""
+    leaves and child ΔNodes)."""
     rng = np.random.default_rng(seed)
-    n_keys = 300 if height < 8 else 3000
+    n_keys = 300 if height < 8 else TALL_KEYS.get(height, 3000)
     max_dnodes = max_dnodes or (2048 if height < 10 else 128)
+    key_hi = KEY_HI if n_keys < 10_000 else 5 * KEY_HI
     cfg = DT.TreeConfig(height=height, max_dnodes=max_dnodes,
                         buf_cap=8, payload_bits=payload_bits,
                         engine="lockstep")
-    vals = np.unique(rng.integers(1, KEY_HI, n_keys)).astype(np.int32)
+    vals = np.unique(rng.integers(1, key_hi, n_keys)).astype(np.int32)
     t = DT.bulk_build(cfg, vals, vals % 97 if payload_bits else None,
                       device="cpu")
     for _ in range(3):
         kinds = rng.choice([1, 1, 2], 256).astype(np.int32)
-        keys = rng.integers(1, KEY_HI, 256).astype(np.int32)
+        keys = rng.integers(1, key_hi, 256).astype(np.int32)
         keys[kinds == 2] = rng.choice(vals, int((kinds == 2).sum()))
         t, _, _ = DT.update_batch(cfg, t, kinds, keys, keys % 97)
     assert not bool(t.alloc_fail)
@@ -299,17 +341,22 @@ def _rows_of(value, child, dn):
     return rows.contiguous(), crows.contiguous()
 
 
-@pytest.mark.parametrize("height", range(1, 13))
+@pytest.mark.parametrize("height", [*range(1, 17), 22])
 def test_piece_plan_covers_every_path(height):
     """Every root-to-leaf path of a height-H ΔNode crosses one piece per
     plan entry; each piece is the contiguous storage run
     [pos[root], pos[root] + 2**p - 1) in `piece_pos` order, and the pieces
-    hold the path's nodes exactly once.  Round trips a ΔNode: 1 / 2 / 4 at
-    H = 4 / 7 / 12."""
+    hold the path's nodes exactly once (above height 12, 4096 of the
+    paths, the first and last among them).  Pieces a ΔNode: 1 / 2 / 4 / 8
+    at H = 4 / 7 / 12 / 22."""
     pos = layout.veb_pos_table(height)
     plan = piece_plan(height)
     assert sum(plan) == height and max(plan) <= PIECE
-    for leaf in range(2 ** (height - 1), 2 ** height):
+    leaves = range(2 ** (height - 1), 2 ** height)
+    if height > VS.SMEM_HEIGHT:
+        pick = np.random.default_rng(height).choice(len(leaves), 4096)
+        leaves = [leaves[0], leaves[-1], *(leaves[int(i)] for i in pick)]
+    for leaf in leaves:
         path = [leaf >> s for s in range(height - 1, -1, -1)]
         depth = 0
         for p in plan:
@@ -322,9 +369,20 @@ def test_piece_plan_covers_every_path(height):
                 list(range((1 << p) - 1))
             depth += p
         assert depth == height
-    assert len(plan) == {4: 1, 7: 2, 12: 4}.get(height, len(plan))
+    assert len(plan) == {4: 1, 7: 2, 12: 4, 22: 8}.get(height, len(plan))
     assert len(plan) == (1 if height <= 4 else 2 if height <= 8
-                         else 3 if height == 9 else 4)
+                         else 3 if height == 9 else 4 if height <= 16
+                         else len(plan))
+
+
+@pytest.mark.parametrize("height", range(1, 31))
+def test_cuda_plan_equals_the_split(height):
+    """The kernels' 64-bit ``veb::piece_plan`` equals the recursive vEB
+    split at every height the kernels take (1-30): at most 8 pieces of
+    height <= 4."""
+    plan = cuda_piece_plan(height)
+    assert plan == piece_plan(height)
+    assert len(plan) <= 8 and max(plan) <= PIECE and sum(plan) == height
 
 
 @pytest.mark.parametrize("payload_bits", [0, 12])
@@ -339,8 +397,9 @@ def test_lane_model_equals_plain_random_arena(height, payload_bits):
     for cap in (1, 2, 5, 40):
         kw = dict(height=height, max_rounds=cap)
         want = TREF.ref_delta_walk_fused(value, child, roots, q, **kw)
-        got, _ = model_fused(value, child, roots, q, block=32, **kw)
-        _equal(want, got, WALK, (height, cap))
+        for block in block_sizes():
+            got, _ = model_fused(value, child, roots, q, block=block, **kw)
+            _equal(want, got, WALK, (height, cap, block))
     rows, crows = _rows_of(value, child, roots)
     want = TREF.ref_veb_walk_rows(rows, crows, q, height=height)
     got, _ = model_rows(rows, crows, q, height=height)
@@ -348,11 +407,12 @@ def test_lane_model_equals_plain_random_arena(height, payload_bits):
 
 
 @pytest.mark.parametrize("payload_bits", [0, 12])
-@pytest.mark.parametrize("height", range(3, 13))
+@pytest.mark.parametrize("height", [*range(3, 15), 16])
 def test_lane_model_equals_plain_every_cap(height, payload_bits):
-    """The fused model on churned trees at heights 3-12, set and map
-    mode, at every round cap from 1 to one past the largest lane's need;
-    the rows model in every round of the per-round walk."""
+    """The fused model on churned trees at heights 3-16 (13-16: the tall
+    path), set and map mode, at every round cap from 1 to one past the
+    largest lane's need; the rows model in every round of the per-round
+    walk."""
     cfg, t = _tree(height, payload_bits, seed=10 * height + payload_bits)
     roots, q = _lanes(cfg, t, 64, seed=height)
     full = TREF.ref_delta_walk_fused(t.value, t.child, roots, q,
@@ -399,12 +459,14 @@ def test_lane_model_equals_pallas(height):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
 
 
-@pytest.mark.parametrize("height", [4, 7, 12])
+@pytest.mark.parametrize("height", [4, 7, 12, 14, 16])
 def test_round_trips_per_search(height):
     """On the main path every lane starts at the root, which its block has
     staged: a search of D ΔNodes makes (D - 1) x len(plan) round trips to
     device memory, where reading router by router took D x H plus one a
-    child hop; rows take one round trip a piece reached."""
+    child hop; rows take one round trip a piece reached.  On the tall path
+    a piece costs one more (its root's position first) and no root is
+    staged: 2 D x len(plan), still fewer than router by router."""
     cfg, t = _tree(height, 0, seed=height)
     k = 96
     roots = t.root.expand(k).contiguous()
@@ -414,9 +476,55 @@ def test_round_trips_per_search(height):
                              max_rounds=cfg.walk_round_cap)
     hops = got[3]
     plan = len(piece_plan(height))
-    assert trips == int((hops - 1).sum()) * plan
+    tall = height > VS.SMEM_HEIGHT
+    staged = not tall
+    per_dnode = 2 if tall else 1                # round trips a piece
+    root = (per_dnode - 1) if staged else per_dnode
+    assert trips == int((root + (hops - 1) * per_dnode).sum()) * plan
     router_trips = int(hops.sum()) * (height + 1)
-    assert 2 * trips < router_trips
+    assert (1 if tall else 2) * trips < router_trips
     rows, crows = _rows_of(t.value, t.child, roots)
     _, per_lane = model_rows(rows, crows, q, height=height)
-    assert max(per_lane) == plan and min(per_lane) >= 1
+    per_piece = 2 if tall else 1
+    assert max(per_lane) == plan * per_piece and min(per_lane) >= per_piece
+
+
+@pytest.mark.parametrize("height", [7, 12, 14, 16])
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
+def test_lane_model_every_block_size(block, height):
+    """Each built block size gives the plain version's bits on a churned
+    tree with per-lane roots (a block's lanes share its first lane's
+    staged root, which may not be their own); the sizes differ only in
+    the round trips the staging saves, none on the tall path (14,
+    16), which stages no root."""
+    assert block in block_sizes()
+    cfg, t = _tree(height, 0, seed=5 * height)
+    roots, q = _lanes(cfg, t, 600, seed=block)
+    kw = dict(height=height, max_rounds=cfg.walk_round_cap)
+    want = TREF.ref_delta_walk_fused(t.value, t.child, roots, q, **kw)
+    got, trips = model_fused(t.value, t.child, roots, q, block=block, **kw)
+    _equal(want, got, WALK, (height, block))
+    _, base = model_fused(t.value, t.child, roots, q, **kw)
+    stages = height <= VS.SMEM_HEIGHT
+    assert (trips == base) == (not stages or block == VS.DEFAULT_BLOCK)
+
+
+@pytest.mark.parametrize("payload_bits", [0, 12])
+@pytest.mark.parametrize("height", [13, 14, 15, 16, 17])
+def test_tall_root_read_in_place(height, payload_bits):
+    """On the tall path the fused kernel stages no root: every block size
+    gives the plain version's bits with the same round trips, two a piece
+    in every ΔNode a lane visits, the root included."""
+    cfg, t = _tree(height, payload_bits, seed=height + payload_bits,
+                   max_dnodes=8 if height > 16 else None)
+    k = 160
+    roots = t.root.expand(k).contiguous()
+    _, q = _lanes(cfg, t, k, seed=height)
+    kw = dict(height=height, max_rounds=cfg.walk_round_cap)
+    want = TREF.ref_delta_walk_fused(t.value, t.child, roots, q, **kw)
+    trips = set()
+    for block in (32, VS.DEFAULT_BLOCK):
+        got, n = model_fused(t.value, t.child, roots, q, block=block, **kw)
+        _equal(want, got, WALK, (height, payload_bits, block))
+        trips.add(n)
+    assert trips == {2 * len(piece_plan(height)) * int(want[3].sum())}

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Scan batch times of two checkouts of the port on one card, in one run.
+"""Scan and main-path batch times of two checkouts of the port on one
+card, in one run.
 
     python3 tools/scan_batch.py --base DIR [--pairs 2] [--reps 30] [--seed 0]
                                 [--out FILE]
@@ -22,7 +23,11 @@ card:
   oracle;
 * ``range_scan`` pages: three paginations to the end, as phase 3 reads;
 * phase 4's deferred scan batch (dense / 128 with the buffered merge,
-  ``chip_smoke.relaxed_path``'s median over its 10 steps).
+  ``chip_smoke.relaxed_path``'s median over its 10 steps) and update
+  batch;
+* phase 3's search and update batches (``chip_smoke.main_path``'s medians
+  over its 20 fused steps and its 3 per-round steps), which resolve the
+  walks' block size on every walk.
 
 Prints one JSON line a process, a table of their medians and, for each
 time, the medians over each version's processes, the base's spread
@@ -58,7 +63,8 @@ def child(src: Path, reps: int, seed: int, device: str = "cuda") -> dict:
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.integers(1, CS.KEY_MAX, CS.INITIAL).astype(np.int32))
-    _, ix, oracle = CS.main_path(keys, rng, device, CS.STEPS, walk_fused=True)
+    fused, ix, oracle = CS.main_path(keys, rng, device, CS.STEPS,
+                                     walk_fused=True)
     live = oracle.keys()
     cells = [(d, m) for d in CS.DENSITY_FILL for m in CS.SCAN_MAX_OUT]
     batch_ms = {f"{d}/{m}": [] for d, m in cells}
@@ -102,7 +108,15 @@ def child(src: Path, reps: int, seed: int, device: str = "cuda") -> dict:
     torch.cuda.empty_cache()
     deferred = CS.relaxed_path(keys, rng, device, "deferred",
                                CS.DEFERRED_STEPS)
-    return dict(src=str(src), reps=reps,
+    torch.cuda.empty_cache()
+    per_round, ix, _ = CS.main_path(keys, rng, device, CS.PER_ROUND_STEPS,
+                                    walk_fused=False)
+    del ix
+    main_ms = {f"{name} {kind}": run[f"{kind}_ms"]
+               for name, run in (("fused", fused), ("per-round", per_round))
+               for kind in ("search", "update")}
+    main_ms["deferred update"] = deferred["update_ms"]
+    return dict(src=str(src), reps=reps, main_ms=main_ms,
                 batch_ms={c: statistics.median(v) for c, v in batch_ms.items()},
                 batch_min_ms={c: min(v) for c, v in batch_ms.items()},
                 page_ms=statistics.median(page_ms), pages=len(page_ms),
@@ -146,10 +160,12 @@ def main() -> int:
                    version=name, seconds=time.perf_counter() - t0)
         print(json.dumps(row), flush=True)
         runs.append(row)
-    cols = [*runs[0]["batch_ms"], "page", "deferred dense/128"]
+    cols = [*runs[0]["batch_ms"], "page", "deferred dense/128",
+            *runs[0]["main_ms"]]
     for r in runs:
         r["times"] = dict(zip(cols, [*r["batch_ms"].values(), r["page_ms"],
-                                     r["deferred_scan_ms"]]))
+                                     r["deferred_scan_ms"],
+                                     *r["main_ms"].values()]))
     print("| run | " + " | ".join(cols) + " |")
     for i, r in enumerate(runs):
         print(f"| {i + 1} {r['version']} | "

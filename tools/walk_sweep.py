@@ -2,25 +2,32 @@
 """Block-size sweep of the walk kernels, beside other checkouts', on one card.
 
     python3 tools/walk_sweep.py [--base DIR ...] [--threads 32,64,128,256]
-                                [--reps 20] [--seed 0] [--out FILE]
+                                [--height H ...] [--reps 20] [--seed 0]
+                                [--out FILE]
 
-Builds ``csrc/veb_walk.cu`` once for each block size in ``--threads`` (a
-copy of the source under ``build/walk_sweep/`` with ``kThreads`` set to
-it; the source in the checkout is not touched) and, with ``--base``, each
-DIR's ``veb_walk.cu`` as it is, named by DIR's last component (DIR is
-another checkout's root, for instance the parent commit unpacked with
-``git archive`` into the git-ignored ``build/``); one nvcc each, all at
-once, with ``-Xptxas -v`` (the
-register, shared-memory and spill lines of each build are printed).
-Then, on ``chip_smoke.py``'s phase 2 trees (the Fig. 12 tree after three
-update batches, set mode and map mode) and queries, for K = 1024 and
-2**20 (``chip_smoke.TIMED_K``): every build's ``veb_walk_fused`` and
-``veb_walk_rows`` (over the rows of the per-round walk's first round) must
-equal the plain versions exactly, then each is timed with
-``chip_smoke.cuda_ms`` (CUDA events, L2 flushed before each launch) in
-turns: the bases, each size, then all again in reverse order; a build's
-time is the mean of its two readings.  Prints a JSON line a cell and a
-table; ``--out`` writes them all.  Needs a CUDA card.
+The walk kernels (``csrc/veb_walk.cu``) are built for each block size in
+``veb_search.BLOCK_SIZES`` and take the size at launch (``q_tile``): this
+checkout's library is built once and each size in ``--threads`` is timed
+through ``q_tile=``.  With ``--base``, each DIR's ``veb_walk.cu`` is built
+as it is (under ``build/walk_sweep/``, named by DIR's last component) and
+timed at its default size; DIR is another checkout's root, for instance
+the parent commit unpacked with ``git archive`` into the git-ignored
+``build/``; it must take the block size at launch.  One nvcc each, all
+at once, with ``-Xptxas -v`` (the register, shared-memory and spill lines
+of each build are printed).  Then, on ``chip_smoke.py``'s phase 2 trees
+(the Fig. 12 tree after three update batches, set mode and map mode) and
+queries, for K = 1024 and 2**20 (``chip_smoke.TIMED_K``): every variant's
+``veb_walk_fused`` and ``veb_walk_rows`` (over the rows of the per-round
+walk's first round) must equal the plain versions exactly, then each is
+timed with ``chip_smoke.cuda_ms`` (CUDA events, L2 flushed before each
+launch) in turns: the bases, each size, then all again in reverse order;
+a variant's time is the mean of its two readings.  With ``--height``,
+the trees are instead ``chip_smoke.tall_tree``'s at each height H (20,000
+draws, 64 ΔNodes where ``chip_smoke.TALL_TREES`` has no entry; one eager
+update batch) and only ``veb_walk_fused`` runs, every lane from the root:
+a gathered row of a tall ΔNode a lane would not fit the card at 2**20.
+Prints a JSON line a cell and a table; ``--out`` writes them all.  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +35,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import shutil
 import statistics
 import subprocess
@@ -39,13 +45,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SWEEP_DIR = ROOT / "build" / "walk_sweep"
 CSRC = Path("src/repro_torch/kernels/csrc")
-KTHREADS = re.compile(r"constexpr int kThreads = \d+;")
 
 
-def build(csrc: Path, name: str, threads: int | None) -> tuple[Path, str]:
-    """Compiles ``csrc``'s veb_walk.cu (kThreads set to ``threads`` unless
-    None) into ``build/walk_sweep/<name>/``; returns the library and
-    ptxas's report."""
+def build_base(csrc: Path, name: str) -> tuple[Path, str]:
+    """Compiles ``csrc``'s veb_walk.cu as it is into
+    ``build/walk_sweep/<name>/``; returns the library and ptxas's report."""
     from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
 
     out = SWEEP_DIR / name
@@ -53,18 +57,12 @@ def build(csrc: Path, name: str, threads: int | None) -> tuple[Path, str]:
     out.mkdir(parents=True)
     for f in [csrc / "veb_walk.cu", *csrc.glob("*.cuh")]:
         shutil.copy(f, out / f.name)
-    cu = out / "veb_walk.cu"
-    if threads is not None:
-        text, n = KTHREADS.subn(f"constexpr int kThreads = {threads};",
-                                cu.read_text())
-        if n != 1:
-            raise SystemExit(f"kThreads not found once in {csrc}/veb_walk.cu")
-        cu.write_text(text)
     lib = out / "veb_walk.so"
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                           str(lib), str(cu)], capture_output=True, text=True)
+                           str(lib), str(out / "veb_walk.cu")],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed on {cu}:\n{proc.stderr}")
+        raise SystemExit(f"nvcc failed on {csrc}/veb_walk.cu:\n{proc.stderr}")
     return lib, proc.stdout + proc.stderr
 
 
@@ -72,7 +70,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", type=Path, nargs="+", default=[],
                     help="other checkouts' roots, timed beside this one")
-    ap.add_argument("--threads", default="32,64,128,256")
+    ap.add_argument("--threads", default="32,64,128,256",
+                    help="this checkout's block sizes to time")
+    ap.add_argument("--height", type=int, nargs="+", default=[],
+                    help="time the fused walk on tall trees of these heights")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None)
@@ -90,22 +91,30 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels import veb_search as VS
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    sizes = [int(n) for n in args.threads.split(",")]
+    bad = [n for n in sizes if n not in VS.BLOCK_SIZES]
+    if bad:
+        raise SystemExit(f"--threads {bad}: built sizes are {VS.BLOCK_SIZES}")
+    card = CS.card_name()
     print(card, flush=True)
-    jobs = [(d.name, d / CSRC, None) for d in args.base]
-    jobs += [(f"t{n}", ROOT / CSRC, int(n)) for n in args.threads.split(",")]
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(lambda j: build(j[1], j[0], j[2]), jobs))
-    libs = {}
-    for (name, _, _), (lib, report) in zip(jobs, built):
-        libs[name] = ctypes.CDLL(str(lib))
-        for line in CS.ptxas_lines(report, ("walk_fused_kernel",
-                                            "walk_rows_kernel")):
+    with ThreadPoolExecutor(len(args.base) + 2) as pool:
+        bases = [pool.submit(build_base, d / CSRC, d.name) for d in args.base]
+        report = pool.submit(B.resource_usage, "veb_walk.cu")
+        this = pool.submit(B.library, "veb_walk.cu")
+        built = [(d.name, *f.result()) for d, f in zip(args.base, bases)]
+        built.append(("this", None, report.result()))
+        this_lib = this.result()
+    for name, _, usage in built:
+        for line in CS.ptxas_lines(usage, ("walk_fused_kernel",
+                                           "walk_rows_kernel")):
             print(f"ptxas {name}: {line}", flush=True)
-    names = list(libs)
+    # variant -> (library, block size)
+    variants = {}
+    for name, lib, _ in built[:-1]:
+        variants[name] = (ctypes.CDLL(str(lib)), VS.DEFAULT_BLOCK)
+    for n in sizes:
+        variants[f"t{n}"] = (this_lib, n)
+    names = list(variants)
     order = names + names[::-1]
 
     device = torch.device("cuda")
@@ -113,37 +122,48 @@ def main() -> int:
     keys = np.unique(rng.integers(1, CS.KEY_MAX, CS.INITIAL).astype(np.int32))
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
     rows_out = []
-    for bits in (0, 12):
+    trees = [(None, bits) for bits in (0, 12)]
+    if args.height:
+        trees = [(h, bits) for h in args.height for bits in (0, 12)]
+    for height, bits in trees:
         mode = "map int64" if bits else "set int32"
-        cfg, t = CS.churned_tree(keys, bits, rng, device)
+        if height is None:
+            cfg, t = CS.churned_tree(keys, bits, rng, device)
+            tree_keys = keys
+        else:
+            cfg, t, tree_keys = CS.tall_tree(
+                height, bits, rng, device,
+                CS.TALL_TREES.get(height, (20_000, 64)))
         h, cap = cfg.height, cfg.walk_round_cap
         for k in CS.TIMED_K:
-            q = CS.kernel_queries(cfg, t, keys, k, rng, device)
+            q = CS.kernel_queries(cfg, t, tree_keys, k, rng, device)
             roots = t.root.expand(k).contiguous()
-            rws, crw = t.value[roots.long()], t.child[roots.long()]
-            calls = {
-                "fused": lambda: VS.veb_walk_fused(t.value, t.child, roots, q,
-                                                   height=h, max_rounds=cap),
-                "rows": lambda: VS.veb_walk_rows(rws, crw, q, height=h),
-            }
-            want = {
-                "fused": ref.ref_delta_walk_fused(t.value, t.child, roots, q,
-                                                  height=h, max_rounds=cap),
-                "rows": ref.ref_veb_walk_rows(rws, crw, q, height=h),
-            }
-            for kernel, fn in calls.items():
+            calls = {"fused": lambda n: VS.veb_walk_fused(
+                t.value, t.child, roots, q, height=h, max_rounds=cap,
+                q_tile=n)}
+            want = {"fused": ref.ref_delta_walk_fused(
+                t.value, t.child, roots, q, height=h, max_rounds=cap)}
+            if height is None:
+                rws, crw = t.value[roots.long()], t.child[roots.long()]
+                calls["rows"] = lambda n: VS.veb_walk_rows(
+                    rws, crw, q, height=h, q_tile=n)
+                want["rows"] = ref.ref_veb_walk_rows(rws, crw, q, height=h)
+            for kernel, call in calls.items():
                 for name in names:
-                    B._LOADED["veb_walk.cu"] = libs[name]
-                    got = fn()
+                    lib, n = variants[name]
+                    B._LOADED["veb_walk.cu"] = lib
+                    got = call(n)
                     torch.cuda.synchronize()
                     CS.check(all(torch.equal(a, b) for a, b in
                                  zip(got, want[kernel])),
                              f"{name} {kernel} != plain ({mode}, K={k})")
                 times = {name: [] for name in names}
                 for name in order:
-                    B._LOADED["veb_walk.cu"] = libs[name]
-                    times[name].append(CS.cuda_ms(fn, args.reps, flush))
-                row = dict(mode=mode, K=k, kernel=kernel,
+                    lib, n = variants[name]
+                    B._LOADED["veb_walk.cu"] = lib
+                    times[name].append(
+                        CS.cuda_ms(lambda: call(n), args.reps, flush))
+                row = dict(height=h, mode=mode, K=k, kernel=kernel,
                            ms={n: statistics.fmean(v)
                                for n, v in times.items()},
                            readings=times)
@@ -151,10 +171,10 @@ def main() -> int:
                 rows_out.append(row)
         del t
         torch.cuda.empty_cache()
-    B._LOADED.pop("veb_walk.cu", None)
-    print("| mode | K | kernel | " + " | ".join(names) + " |")
+    B._LOADED["veb_walk.cu"] = this_lib
+    print("| height | mode | K | kernel | " + " | ".join(names) + " |")
     for r in rows_out:
-        print(f"| {r['mode']} | {r['K']} | {r['kernel']} | "
+        print(f"| {r['height']} | {r['mode']} | {r['K']} | {r['kernel']} | "
               + " | ".join(f"{r['ms'][n]:.6f}" for n in names) + " |")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
