@@ -84,7 +84,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    one successor batch checked against the oracle; every step must carry
    buffered items (``stats.pending > 0``), so the scans merged them.  Then
    ``flush()`` and the live set.  The same for 3 steps under
-   ``budgeted:8``.
+   ``budgeted:8``.  4.3, the card replay: the committed traces in which
+   an Expand keeps an item (``eager`` and ``budgeted:2``) and the seeded
+   op sequences of each policy's lockstep configuration
+   (``tests/_torch_traces.py``, which ``tests/test_torch_property.py``
+   holds to the JAX package) run on the CPU port (the plain versions),
+   then on the card (kernels 2 and 3): after every step the results,
+   stats and whole arena, and before every update the batch's search,
+   successor and a scan, must be equal; its seconds are printed.
 5. The serve path at Granite-8B width (``repro_torch.configs.granite_8b``):
    ``paged_decode_attention`` (a split-K kernel over chunks of pages, then
    a merge) against its plain version in float32 and bf16 at Granite
@@ -311,7 +318,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    leaf's largest; prefill and decode times beside one process's.
    13.6: the train step of DeepSeek-V2 (full width, cut to its dense
    first layer: MLA + dense FFN), Mamba2-370m (full width, 4 of 48
-   layers) and Whisper-base (whole), float32, 2 steps on (2, 2), held as
+   layers) and Whisper-base (whole), float32, one step on (2, 2), held as
    13.1 is (losses 1e-4, grad norms 1e-4 relative, first moments 1e-3
    of each leaf's largest); each config's cut printed first.  Every
    sharded step runs under `parallel.comm.no_functional_collectives`.
@@ -365,6 +372,10 @@ TRUNCATING_ROUNDS = 300    # scan round caps below a dense lane's need: this
                            # and TRUNCATING_ROUNDS + 1, so cuts land in both
                            # pass kinds
 DEEP_KEYS = 600            # ascending inserts of the deep-path scan check
+# timed runs of the plain version in phase 2's scan cells and tall tables
+# (after the untimed one): a dense scan cell's takes up to 3.6 s, so one
+# run keeps the script inside its time limit
+PLAIN_TIMED_REPS = 1
 # The scan kernel's times in the timed cells before its redesign (one
 # thread a lane, every pass walked from the root; NVIDIA H100 80GB HBM3,
 # 700.00 W), printed beside each cell's time now
@@ -956,7 +967,8 @@ def compare_scan(cfg, t, n_keys: int, sorted_keys, rng, device, flush,
             r = dict(mode=mode, density=density, max_out=max_out, K=SCAN_K,
                      ms=cuda_ms(kern, 10, flush),
                      simple_ms=SIMPLE_SCAN_MS[(mode, density, max_out)],
-                     plain_ms=cuda_ms(plain, 2, flush), bytes=nbytes,
+                     plain_ms=cuda_ms(plain, PLAIN_TIMED_REPS, flush),
+                     bytes=nbytes,
                      bound_ms=bound_ms(nbytes), err=e,
                      searchsorted_ms=cuda_ms(yardstick, 10, flush),
                      emitted=int(got[1].sum()), rows_full=int(got[3].sum()),
@@ -1281,7 +1293,8 @@ def tall_check(height: int, payload_bits: int, rng, device, flush) -> dict:
                     for a, b in zip(got, want))
             check(e == 0, f"{name} != plain on the timed tall lanes")
             rows[name] = dict(height=h, K=k, ms=cuda_ms(kern, 10, flush),
-                              plain_ms=cuda_ms(plain, 2, flush), bytes=nbytes,
+                              plain_ms=cuda_ms(plain, PLAIN_TIMED_REPS, flush),
+                              bytes=nbytes,
                               bound_ms=bound_ms(nbytes), err=e)
             log(json.dumps({"table": f"tall {name}", "mode": "set int32",
                             **rows[name]}))
@@ -1698,6 +1711,102 @@ def relaxed_path(keys, rng, device, policy: str, steps: int) -> dict:
                 update_ms=statistics.median(update_s) * 1e3,
                 scan_ms=statistics.median(scan_s) * 1e3,
                 flush_s=flush_s, flush_rounds=fstats.rounds)
+
+
+def replay_runs():
+    """The card replay's runs (``tests/_torch_traces.py``): (label, cfg,
+    initial keys or None, steps).  The committed Expand-keep traces, then
+    the seeded op sequences of each policy's lockstep configuration (every
+    batch padded as the tests pad it); a step is a (kinds, keys) batch or
+    "flush" (a one-repair flush)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_traces as T
+    from repro_torch.core import deltatree as DT
+
+    for policy in sorted(T.KEEP_TRACES):
+        yield (f"keep {policy}", DT.TreeConfig(maintenance=policy,
+                                               **T.KEEP_CFG),
+               T.KEEP_INIT, list(T.keep_steps(policy)))
+    for policy, engine, height in T.SEQ_CONFIGS:
+        if engine != "lockstep":
+            continue
+        cfg = DT.TreeConfig(height=height, maintenance=policy,
+                            engine=engine, **T.SEQ_CFG)
+        seqs = T.seeded_sequences(T.seq_seed(policy, engine, height))
+        for s, seq in enumerate(seqs):
+            yield (f"seq {policy} h{height} #{s}", cfg, None,
+                   [T.pad(kinds, keys) for kinds, keys in seq])
+
+
+def replay_play(cfg, init, steps, device) -> list:
+    """One run on ``device``: after each step its results, stats, whole
+    arena and, before each update, the batch's search, successor and a
+    scan (start key - 5 < key <= key + 15, ``max_out`` 8) as numpy."""
+    import numpy as np
+
+    from repro_torch.core import deltatree as DT
+
+    def host(cols):
+        return [c.cpu().numpy() for c in cols]
+
+    t = (DT.empty(cfg, device=device) if init is None
+         else DT.bulk_build(cfg, init, device=device))
+    out = []
+    for step in steps:
+        rec = {}
+        if step == "flush":
+            t, st = DT.flush(cfg, t, 1)
+        else:
+            kinds, keys = step
+            rec["search"] = host(DT.search_batch(cfg, t, keys))
+            rec["succ"] = host(DT.successor_batch(cfg, t, keys))
+            rec["scan"] = host(DT.scan_batch(
+                cfg, t, np.maximum(keys - 5, 0).astype(np.int32),
+                (keys + 15).astype(np.int32), 8))
+            t, res, st = DT.update_batch(cfg, t, kinds, keys)
+            rec["res"] = res.cpu().numpy()
+        rec["stats"] = np.asarray(tuple(st))
+        rec.update(DT.to_numpy(t))
+        out.append(rec)
+    return out
+
+
+def replay_leg(device) -> dict:
+    """Phase 4's card replay: every run of `replay_runs` on the CPU port
+    (the kernels' plain versions), then on the card (kernels 2 and 3),
+    each step's every array equal.  Counters set to 0 before the card's
+    runs, read after: the fused walk and the scan must launch, no plain
+    version may run."""
+    import numpy as np
+
+    def same(a, b) -> bool:      # arrays, or lists of a read's columns
+        a, b = (a, b) if isinstance(b, list) else ([a], [b])
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+    runs = list(replay_runs())
+    t0 = time.perf_counter()
+    want = [replay_play(cfg, init, steps, "cpu")
+            for _, cfg, init, steps in runs]
+    cpu_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    n_steps = 0
+    for (label, cfg, init, steps), ref in zip(runs, want):
+        got = replay_play(cfg, init, steps, device)
+        for i, (g, w) in enumerate(zip(got, ref)):
+            check(g.keys() == w.keys(), f"replay {label} step {i}: fields")
+            for name in w:
+                check(same(g[name], w[name]), f"replay {label} step {i}: "
+                      f"{name} differs between the card and the CPU")
+        n_steps += len(steps)
+    card_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["fused"] > 0, "replay: veb_walk_fused not launched")
+    check(counts["scan"] > 0, "replay: veb_scan_fused not launched")
+    check(counts["plain"] == 0, "replay: a plain version ran on the card")
+    return dict(runs=len(runs), steps=n_steps, counts=counts,
+                cpu_s=cpu_s, card_s=card_s)
 
 
 # --------------------------------------------------------------------------
@@ -5288,7 +5397,7 @@ MIXER_CELLS = (
      "cut to its dense prologue layer (MLA + dense FFN), 1 of 60", 2, 1024),
     ("mamba2_370m", dict(num_layers=4), "cut to 4 of 48 layers", 2, 1024),
     ("whisper_base", {}, "whole (6 + 6 layers, 1500 frames)", 2, 448))
-MIXER_STEPS = 2
+MIXER_STEPS = 1   # 13.1 takes 3; one here keeps the script in its time limit
 
 
 def collective_mode():
@@ -6245,6 +6354,11 @@ def run_phases(seed: int, device):
         log(json.dumps({"relaxed_path": relaxed_path(keys, rng, device,
                                                      policy, steps)}))
         torch.cuda.empty_cache()
+    t_replay = time.perf_counter()
+    replay = replay_leg(device)
+    log(json.dumps({"replay": replay}))
+    log(f"4.3 card replay passed in {time.perf_counter() - t_replay:.1f} s "
+        f"({replay['runs']} runs, {replay['steps']} steps)")
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     serve = serve_phase(seed, device)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
@@ -6284,6 +6398,8 @@ def run_phases(seed: int, device):
                                      ranks["launches"].items()}})
         if name == "fused":
             extra["phase7_launches"] = comp["launches"]
+        if name != "rows":
+            extra["replay_launches"] = replay["counts"][name]
         out.append({"name": names[name], "route": "cuda",
                     "source": sources[name], "replaces": replaces[name],
                     "launches": launches[name], **extra,

@@ -26,6 +26,7 @@ from repro_torch.api.registry import (
     make_index,
     register_backend,
     supported_engines,
+    supported_maintenance,
 )
 from repro_torch.api import backends as _backends  # noqa: F401  (registers built-ins)
 
@@ -46,4 +47,5 @@ __all__ = [
     "make_index",
     "register_backend",
     "supported_engines",
+    "supported_maintenance",
 ]

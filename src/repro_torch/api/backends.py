@@ -29,7 +29,6 @@ from repro_torch.core.deltatree import TreeConfig
 from repro_torch.distributed import forest as F
 from repro_torch.distributed import router as R
 from repro_torch.distributed.forest import ForestConfig
-from repro_torch.maintenance.policy import KINDS
 
 _TREE_FIELDS = {f.name for f in dataclasses.fields(TreeConfig)}
 
@@ -96,7 +95,7 @@ register_backend(BackendSpec(
     alloc_failed=lambda cfg, t: bool(t.alloc_fail),
     flush=DT.flush,
     engines=("*",),   # reads dispatch on cfg.engine: any registered engine
-    maintenance=KINDS,
+    maintenance=("*",),   # scheduler dispatch on cfg.maintenance: any policy
 ))
 
 
@@ -179,7 +178,7 @@ register_backend(BackendSpec(
     alloc_failed=lambda cfg, f: F.alloc_failed(f),
     flush=F.flush,
     engines=("*",),   # per-shard reads dispatch on cfg.tree.engine
-    maintenance=KINDS,   # per-shard scheduler on cfg.tree.maintenance
+    maintenance=("*",),   # per-shard scheduler on cfg.tree.maintenance
 ))
 
 

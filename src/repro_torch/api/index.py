@@ -67,7 +67,7 @@ class BackendSpec:
     ``flush`` are optional.  ``engines`` lists the SearchEngine names the
     backend's read path can run under (``"*"``: every engine registered in
     ``repro_torch.core.engine``); ``maintenance`` the policy kinds it
-    accepts.
+    accepts (``"*"``: every kind in ``repro_torch.maintenance.KINDS``).
     """
 
     name: str

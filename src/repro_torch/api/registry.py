@@ -29,6 +29,20 @@ def available_backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def supported_maintenance(backend: str) -> tuple[str, ...]:
+    """Maintenance policy *kinds* ``backend`` accepts via ``maintenance=``.
+
+    ``("*",)`` expands to every kind the scheduler knows
+    (``repro_torch.maintenance.KINDS``); literal entries pass through."""
+    spec = get_backend(backend)
+    if "*" not in spec.maintenance:
+        return spec.maintenance
+    from repro_torch.maintenance import KINDS
+
+    literal = [m for m in spec.maintenance if m != "*"]
+    return tuple(dict.fromkeys(literal + list(KINDS)))
+
+
 def supported_engines(backend: str) -> tuple[str, ...]:
     """SearchEngine names ``backend`` accepts via ``engine=`` (a declared
     ``"*"`` expands to the engine registry at call time)."""
@@ -77,10 +91,11 @@ def make_index(backend: str = "deltatree", *, initial=None, payloads=None,
             kwargs["engine"] = engine
     if maintenance is not None:
         pol = parse_policy(maintenance)   # ValueError on garbage specs
-        if pol.kind not in spec.maintenance:
+        kinds = supported_maintenance(backend)
+        if pol.kind not in kinds:
             raise ValueError(
                 f"backend {backend!r} supports maintenance policies "
-                f"{spec.maintenance}, not {maintenance!r}")
+                f"{kinds}, not {maintenance!r}")
         if spec.maintenance != ("eager",):
             kwargs["maintenance"] = str(pol)
     cfg, state = spec.make(initial, payloads, device=device, **kwargs)
@@ -89,6 +104,13 @@ def make_index(backend: str = "deltatree", *, initial=None, payloads=None,
         raise ValueError(
             f"backend {backend!r} config names engine {ix.engine!r}; "
             f"supported: {supported_engines(backend)}")
+    # the same early check for a policy carried in by a prebuilt cfg=
+    ix_pol = parse_policy(ix.maintenance)
+    if ix_pol.kind not in supported_maintenance(backend):
+        raise ValueError(
+            f"backend {backend!r} config names maintenance policy "
+            f"{ix.maintenance!r}; supported kinds: "
+            f"{supported_maintenance(backend)}")
     if payloads is not None and not ix.capability.map_mode:
         raise ValueError(
             f"backend {backend!r} with {ix.capability} stores no payloads; "

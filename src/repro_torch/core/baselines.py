@@ -426,18 +426,23 @@ class PointerBST:
         earlier op of the batch attached a node at that point: the host
         pass keeps those new nodes as small trees hanging off their attach
         points and continues such descents there.  The writes (new nodes,
-        child links, marks, n) go back to the device once."""
+        child links, marks, n) go back to the device once.  A batch that
+        may allocate past ``cap`` nodes replays JAX's loop op by op
+        instead (`_update_past_cap`)."""
         dev = state.val.device
         cap = state.val.shape[0]
         keys = _keys(keys, dev)
+        kinds_h = _np(torch.as_tensor(kinds)).tolist()
+        n, root, depth = int(state.n), int(state.root), state.depth
+        if n + sum(k == OP_INSERT for k in kinds_h) > cap:
+            return PointerBST._update_past_cap(state, kinds_h,
+                                               _np(keys).tolist())
         c, went_left, level = PointerBST._descend(state, keys)
         cc = c.clamp(0, cap - 1).long()
         cols = torch.stack([c, went_left.to(torch.int32), level,
                             state.val[cc], state.mark[cc].to(torch.int32)])
         c_h, wl_h, lv_h, x_h, mk_h = _np(cols).tolist()
-        kinds_h = _np(torch.as_tensor(kinds)).tolist()
         keys_h = _np(keys).tolist()
-        n, root, depth = int(state.n), int(state.root), state.depth
         empty0 = root < 0
         mark = {}      # node -> its mark, where this batch changed it
         new = {}       # node attached in this batch -> [val, left, right]
@@ -462,9 +467,6 @@ class PointerBST:
                 if hit and ok:
                     mark[node] = False
                 elif ok:
-                    if n >= cap:
-                        raise ValueError(
-                            f"pointer_bst: all {cap} nodes allocated")
                     new[n] = [v, -1, -1]
                     if parent in new:
                         new[parent][1 if is_left else 2] = n
@@ -481,6 +483,69 @@ class PointerBST:
             res[i] = ok
         return (PointerBST._write(state, n, root, depth, mark, new, links),
                 torch.from_numpy(res).to(dev))
+
+    @staticmethod
+    def _update_past_cap(state: PointerBSTState, kinds_h: list,
+                         keys_h: list):
+        """JAX's loop, op by op on the host, for a batch that may allocate
+        past ``cap`` nodes.  There JAX's scatters drop the new node's writes
+        while its parent still links its id (``>= cap``) and ``n`` keeps
+        counting, and its gathers clamp: a descent through such an id
+        reads node ``cap - 1``.  Where that read leads to an id ``>= cap``
+        again, JAX's loop never ends; the port raises there instead."""
+        dev = state.val.device
+        cap = state.val.shape[0]
+        val, left, right, mark = (_np(a).copy() for a in (
+            state.val, state.left, state.right, state.mark))
+        n, root, depth = int(state.n), int(state.root), state.depth
+        res = np.zeros(len(keys_h), bool)
+
+        def at(c: int) -> int:             # JAX's clamped gather
+            return min(max(c, 0), cap - 1)
+
+        for i, (k, v) in enumerate(zip(kinds_h, keys_h)):
+            c, lev = root, 0
+            while n > 0:                   # to the match or attach point
+                x = int(val[at(c)])
+                lev += 1
+                nl = int((left if v < x else right)[at(c)])
+                if x == v or nl < 0:
+                    break
+                if c >= cap and nl >= cap:
+                    raise ValueError(
+                        f"pointer_bst: key {v} descends past cap = {cap} "
+                        f"into a cycle (JAX's loop never ends here)")
+                c = nl
+            x, marked = int(val[at(c)]), bool(mark[at(c)])
+            hit = n > 0 and x == v
+            if k == OP_INSERT:
+                ok = marked if hit else True
+                if hit and ok:
+                    if c < cap:
+                        mark[c] = False
+                elif ok:
+                    if n < cap:
+                        val[n] = v
+                    if n == 0:
+                        root = n
+                    elif c < cap:
+                        (left if v < x else right)[c] = n
+                    depth = max(depth, lev + 1)
+                    n += 1
+            else:
+                ok = hit and not marked
+                if ok and c < cap:
+                    mark[c] = True
+            res[i] = ok
+
+        def dev_of(a):
+            return torch.from_numpy(a).to(dev)
+
+        return (PointerBSTState(
+            dev_of(val), dev_of(left), dev_of(right), dev_of(mark),
+            torch.tensor(n, dtype=torch.int32, device=dev),
+            torch.tensor(root, dtype=torch.int32, device=dev), depth),
+            dev_of(res))
 
     @staticmethod
     def _write(state: PointerBSTState, n: int, root: int, depth: int,

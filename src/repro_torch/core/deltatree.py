@@ -37,7 +37,6 @@ import torch
 
 from repro_torch.core import layout
 from repro_torch.core.layout import EMPTY, ROUTE_LEFT
-from repro_torch.kernels.ref import pos_table
 
 NONE = -1
 OP_SEARCH, OP_INSERT, OP_DELETE = 0, 1, 2
@@ -360,6 +359,8 @@ def bulk_build(cfg: TreeConfig, values, payloads=None,
 
 def _pos(cfg: TreeConfig, device) -> torch.Tensor:
     """vEB position table as int64 indices on ``device``."""
+    from repro_torch.kernels.ref import pos_table  # the kernels import core
+
     return pos_table(cfg.height, device).long()
 
 
@@ -460,6 +461,22 @@ def successor_batch(cfg: TreeConfig, t: DeltaTree, keys):
     from repro_torch.core import engine as E  # deferred: engine imports us
 
     return E.successor(cfg, t, keys)
+
+
+# JAX's jitted entry points, by name and signature: nothing is compiled here,
+# so each calls its batch function.
+
+
+def search_jit(cfg: TreeConfig, t: DeltaTree, keys):
+    return search_batch(cfg, t, keys)
+
+
+def lookup_jit(cfg: TreeConfig, t: DeltaTree, keys):
+    return lookup_batch(cfg, t, keys)
+
+
+def successor_jit(cfg: TreeConfig, t: DeltaTree, keys):
+    return successor_batch(cfg, t, keys)
 
 
 # --------------------------------------------------------------------------

@@ -11,4 +11,15 @@ of ``repro.kernels``).
 - ref.py           — the plain PyTorch versions (CPU path, ground truth)
 - ops.py           — the multi-round walk and the scan (public API)
 - autotune.py      — the walks' block size per height (sweep, cache, table)
+
+The package exports the JAX package's kernel API bar ``default_interpret``
+(Pallas's interpreter switch, which has no counterpart here).  Importing
+it builds and loads nothing: `build.py` compiles a kernel at its first
+launch.
 """
+
+from repro_torch.kernels.delta_paged_attention import paged_decode_attention
+from repro_torch.kernels.ops import delta_contains, delta_search, delta_walk
+
+__all__ = ["delta_search", "delta_contains", "delta_walk",
+           "paged_decode_attention"]

@@ -6,7 +6,8 @@ counterparts the test runs itself.  Torch and the port only, never JAX.
 On 8 ranks: the sharded train step of each of STEP_ARCHS and
 MIXER_ARCHS on a 4 x 2 ("data", "model") mesh (`sharded_step`;
 ACCUM_ARCH's also at accum_steps 2), a prefill and SERVE_STEPS decode
-steps of each of SERVE_ARCHS on the same mesh (`serve_leg`), the
+steps of each of SERVE_ARCHS on the same mesh, rows and caches split and
+(2 rows, a cache of 31) whole (`serve_leg`, SERVE_CASES), the
 dry-run's count of COUNT_ARCHS' train and decode steps on it
 (`count_leg`, rank 0 records), each step with DTensor's own collectives
 forbidden; split-K decode attention on
@@ -30,6 +31,10 @@ SERVE_ARCHS = ("granite_8b", "phi3_5_moe_42b", "deepseek_v2_236b",
                "mamba2_370m", "jamba_1_5_large_398b", "whisper_base",
                "internvl2_2b")
 SERVE_B, SERVE_S, SERVE_STEPS, SERVE_LEN = 8, 16, 3, 32
+# rows and cache length of each serve case: "serve" splits both on 4 x 2;
+# "serve_rep" has 2 rows (no split over 4 "data" ranks) and a cache of 31
+# (none over 2 "model" ranks), so `ax.constrain` drops those axes
+SERVE_CASES = {"serve": (SERVE_B, SERVE_LEN), "serve_rep": (2, 31)}
 COUNT_ARCHS = ("granite_8b", "mamba2_370m")
 COUNT_KINDS = ("train", "decode")
 COUNT_SHAPE = (8, 16, 32)                         # rows, tokens, cache
@@ -121,12 +126,12 @@ def sharded_step(rec: dict, arch: str, mesh, accum: int = 1) -> None:
                                       + SH.local_bytes(opt["v"]))
 
 
-def serve_inputs(cfg) -> dict:
-    """rng(1): the prompt (SERVE_B, SERVE_S), the SERVE_STEPS decode tokens
+def serve_inputs(cfg, b: int = SERVE_B) -> dict:
+    """rng(1): the prompt (b, SERVE_S), the SERVE_STEPS decode tokens
     (teacher-forced), a VLM's vision embeddings and an encoder-decoder's
     frames."""
     rng = np.random.default_rng(1)
-    b, v = SERVE_B, cfg.vocab_size
+    v = cfg.vocab_size
     out = {"tokens": rng.integers(0, v, (b, SERVE_S)).astype(np.int32),
            "steps": rng.integers(0, v, (b, SERVE_STEPS)).astype(np.int32)}
     if cfg.family == "vlm":
@@ -138,13 +143,14 @@ def serve_inputs(cfg) -> dict:
     return out
 
 
-def serve_run(cfg, model, caches, place) -> tuple:
-    """A prefill of `serve_inputs` into ``caches``, then SERVE_STEPS
-    decode steps; ``place`` turns a dict of numpy leaves into the step's
-    inputs.  Returns (the prefill's and each step's logits, caches)."""
+def serve_run(cfg, model, caches, place, b: int = SERVE_B) -> tuple:
+    """A prefill of `serve_inputs` (b rows) into ``caches``, then
+    SERVE_STEPS decode steps; ``place`` turns a dict of numpy leaves into
+    the step's inputs.  Returns (the prefill's and each step's logits,
+    caches)."""
     import torch
 
-    x = serve_inputs(cfg)
+    x = serve_inputs(cfg, b)
     batch = place({k: v for k, v in x.items() if k != "steps"})
     if cfg.family == "audio":
         lg, caches = model.prefill(batch["tokens"], batch["frames"], caches)
@@ -158,7 +164,7 @@ def serve_run(cfg, model, caches, place) -> tuple:
     for k in range(SERVE_STEPS):
         tok = place({"token": x["steps"][:, k:k + 1]})["token"]
         lg, caches = model.decode_step(
-            tok, caches, torch.full((SERVE_B,), s0 + k, dtype=torch.int32))
+            tok, caches, torch.full((b,), s0 + k, dtype=torch.int32))
         out.append(lg)
     return out, caches
 
@@ -172,8 +178,9 @@ def cache_leaves(caches) -> dict:
             for k, v in c.items()}
 
 
-def single_serve(arch: str) -> tuple:
-    """`serve_run` in this one process: (logits, {cache leaf: array})."""
+def single_serve(arch: str, case: str = "serve") -> tuple:
+    """`serve_run` of SERVE_CASES[case] in this one process: (logits,
+    {cache leaf: array})."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -182,9 +189,10 @@ def single_serve(arch: str) -> tuple:
     cfg = get_smoke_config(arch)
     m = api(cfg)
     model = m.init_params(device="cpu", seed=0)
-    caches = m.init_caches(SERVE_B, SERVE_LEN, device="cpu")
+    b, length = SERVE_CASES[case]
+    caches = m.init_caches(b, length, device="cpu")
     out, caches = serve_run(cfg, model, caches, lambda d: {
-        k: torch.as_tensor(v) for k, v in d.items()})
+        k: torch.as_tensor(v) for k, v in d.items()}, b)
     return ([o.numpy() for o in out],
             {k: v.numpy() for k, v in cache_leaves(caches).items()})
 
@@ -202,11 +210,12 @@ def save_block(rec: dict, key: str, t) -> None:
     rec[f"{key}@idx"] = np.asarray([[s.start, s.stop] for s in idx])
 
 
-def serve_leg(rec: dict, arch: str, mesh) -> None:
-    """`serve_run` with the parameters placed by ``param_specs``, the
-    inputs by ``batch_spec``, the caches by ``cache_specs`` on ``mesh``,
-    under ``logical_rules``: this rank's blocks of each logits and of
-    every cache leaf after the last step, under ``serve/arch``."""
+def serve_leg(rec: dict, arch: str, mesh, case: str = "serve") -> None:
+    """`serve_run` of SERVE_CASES[case] with the parameters placed by
+    ``param_specs``, the inputs by ``batch_spec``, the caches by
+    ``cache_specs`` on ``mesh``, under ``logical_rules``: this rank's
+    blocks of each logits and of every cache leaf after the last step,
+    under ``case/arch``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import api
     from repro_torch.parallel import comm as C
@@ -217,16 +226,17 @@ def serve_leg(rec: dict, arch: str, mesh) -> None:
     m = api(cfg)
     model = m.init_params(device="cpu", seed=0)
     SH.shard_params(model, SH.to_named(SH.param_specs(model), mesh))
-    caches = m.init_caches(SERVE_B, SERVE_LEN, device="cpu")
+    b, length = SERVE_CASES[case]
+    caches = m.init_caches(b, length, device="cpu")
     caches = SH.shard_state(caches, SH.to_named(SH.cache_specs(caches, mesh),
                                                 mesh))
     with logical_rules(mesh), C.no_functional_collectives():
         out, caches = serve_run(cfg, model, caches,
-                                lambda d: SH.shard_batch(d, mesh, "cpu"))
+                                lambda d: SH.shard_batch(d, mesh, "cpu"), b)
     for j, lg in enumerate(out):
-        save_block(rec, f"serve/{arch}/logits{j}", lg)
+        save_block(rec, f"{case}/{arch}/logits{j}", lg)
     for k, v in cache_leaves(caches).items():
-        save_block(rec, f"serve/{arch}/cache/{k}", v)
+        save_block(rec, f"{case}/{arch}/cache/{k}", v)
 
 
 def count_leg(rec: dict, mesh, device: str = "cpu") -> None:
@@ -334,8 +344,9 @@ def legs(world: int, out_dir: str) -> dict:
     sharded_step(rec, ACCUM_ARCH, mesh, accum=2)
     rec["rank/step_seconds"] = np.asarray(time.perf_counter() - t0)
     t0 = time.perf_counter()
-    for arch in SERVE_ARCHS:
-        serve_leg(rec, arch, mesh)
+    for case in SERVE_CASES:
+        for arch in SERVE_ARCHS:
+            serve_leg(rec, arch, mesh, case)
     rec["rank/serve_seconds"] = np.asarray(time.perf_counter() - t0)
     t0 = time.perf_counter()
     cnt: dict = {}

@@ -270,3 +270,47 @@ def test_baseline_capability_and_engine_gates(backend):
         make_index(backend, initial=[5, 9], maintenance="deferred",
                    device="cpu")
     assert make_index(backend, device="cpu").size() == 0
+
+
+def test_cfg_carried_policy_refused_where_jax_refuses():
+    """A policy that a prebuilt ``cfg=`` carries into a backend that does
+    not declare its kind raises ``ValueError`` in JAX's ``make_index`` and
+    in the port's, for the same call.  No built-in backend reaches that
+    check (``deltatree`` and ``forest`` take every kind; the baselines'
+    configs carry no policy), so each side registers the same
+    ``deltatree`` entry declared eager-only; on the built-in ``deltatree``
+    both sides accept the same ``cfg=``."""
+    import dataclasses
+
+    from repro.api import registry as JR
+    from repro.core.deltatree import TreeConfig as JTreeConfig
+    from repro_torch.api import registry as TR
+
+    name = "deltatree_eager_only"
+    kw = dict(height=4, max_dnodes=64)
+    for reg in (JR, TR):
+        reg.register_backend(dataclasses.replace(
+            reg.get_backend("deltatree"), name=name,
+            maintenance=("eager",)), overwrite=True)
+    try:
+        assert TR.supported_maintenance(name) == \
+            JR.supported_maintenance(name) == ("eager",)
+        for policy in ("deferred", "budgeted:2"):
+            with pytest.raises(ValueError, match="config names maintenance"):
+                JR.make_index(name, initial=[1, 2, 3],
+                              cfg=JTreeConfig(maintenance=policy, **kw))
+            with pytest.raises(ValueError, match="config names maintenance"):
+                TR.make_index(name, initial=[1, 2, 3], device="cpu",
+                              cfg=TDT.TreeConfig(maintenance=policy, **kw))
+        jix = JR.make_index(name, initial=[1, 2, 3], cfg=JTreeConfig(**kw))
+        tix = TR.make_index(name, initial=[1, 2, 3], device="cpu",
+                            cfg=TDT.TreeConfig(**kw))
+        assert jix.maintenance == tix.maintenance == "eager"
+    finally:
+        for reg in (JR, TR):
+            reg._REGISTRY.pop(name, None)
+    jix = JR.make_index("deltatree", initial=[1, 2, 3],
+                        cfg=JTreeConfig(maintenance="budgeted:2", **kw))
+    tix = TR.make_index("deltatree", initial=[1, 2, 3], device="cpu",
+                        cfg=TDT.TreeConfig(maintenance="budgeted:2", **kw))
+    assert jix.maintenance == tix.maintenance == "budgeted:2"

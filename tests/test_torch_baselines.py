@@ -138,18 +138,63 @@ def test_pointer_bst_revive_and_empty_tree():
     assert ts.depth == 3
 
 
-def test_pointer_bst_full_cap_raises():
-    """Past ``cap`` nodes the JAX update drops the node's writes but links
-    it; the port refuses the insert instead of linking a node it cannot
-    store."""
+PAST_CAP = [
+    # n = 4 -> 8: 9 fills the last node (id 4); 0 gets id 5, linked left of
+    # node 1 but never stored; a second insert of 0 reads node 4 through
+    # the clamped id and "attaches" again; the delete of 0 misses; 3 is
+    # deleted and revived
+    ([1, 1, 1, 2, 2, 1], [9, 0, 0, 0, 3, 3]),
+    # 12 links id 7 right of node 4, the last node: from here on a key
+    # above 9 descends into a cycle, and none is used below
+    ([1, 2, 1, 2], [12, 9, 9, 2]),
+    # no insert, n past cap: deletes only
+    ([2, 2, 2], [4, 0, 5]),
+]
+
+
+def _past_cap_trees():
+    js = JB.PointerBST.build(np.arange(1, 5, dtype=np.int32), cap=5)
     ts = TB.PointerBST.build(np.arange(1, 5, dtype=np.int32), cap=5,
                              device="cpu")
-    ts, res = TB.PointerBST.update(ts, np.ones(1, np.int32),
-                                   np.asarray([9], np.int32))
-    assert bool(res[0])
-    with pytest.raises(ValueError, match="nodes allocated"):
+    return js, ts
+
+
+def test_pointer_bst_past_cap_equals_jax():
+    """Past ``cap`` nodes the JAX loop drops a new node's writes but links
+    its id and counts it in ``n``, and a descent through that id reads the
+    last node (a clamped gather; a dropped scatter for its link or mark):
+    the port gives the same results, arrays and later searches."""
+    js, ts = _past_cap_trees()
+    q = np.asarray([0, 1, 2, 3, 4, 5, 6, 9], np.int32)
+    for i, (kinds, keys) in enumerate(PAST_CAP):
+        kinds = np.asarray(kinds, np.int32)
+        keys = np.asarray(keys, np.int32)
+        js, jres = JB.PointerBST.update(js, jnp.asarray(kinds),
+                                        jnp.asarray(keys))
+        ts, tres = TB.PointerBST.update(ts, kinds, keys)
+        np.testing.assert_array_equal(np_of(tres), np.asarray(jres))
+        assert_states_equal(js, ts, f"past cap batch {i}")
+        np.testing.assert_array_equal(
+            np_of(TB.PointerBST.search(ts, q)),
+            np.asarray(JB.PointerBST.search(js, jnp.asarray(q))))
+    assert int(ts.n) == 8 and np_of(ts.left)[1] == 5 \
+        and np_of(ts.right)[4] == 7
+    assert np_of(tres).tolist() == [True, False, False]
+
+
+def test_pointer_bst_past_cap_cycle_raises():
+    """Where a descent through an id past ``cap`` comes back to that id,
+    JAX's while loop never ends (so no JAX leg runs here); the port's
+    update raises instead, and its search stops after ``depth`` steps
+    with the key not found."""
+    _, ts = _past_cap_trees()
+    for kinds, keys in PAST_CAP[:2]:
+        ts, _ = TB.PointerBST.update(ts, np.asarray(kinds, np.int32),
+                                     np.asarray(keys, np.int32))
+    assert not bool(TB.PointerBST.search(ts, [13])[0])
+    with pytest.raises(ValueError, match="cycle"):
         TB.PointerBST.update(ts, np.ones(1, np.int32),
-                             np.asarray([10], np.int32))
+                             np.asarray([13], np.int32))
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -82,6 +82,7 @@ LOSS_TOL, LEAF_TOL = 1e-4, 5e-3        # tests/test_parallel.py's bounds
 GRAD_RTOL = 1e-3                        # of a leaf's largest |m|
 SPLITK_TOL = 1e-5
 SERVE_TOL = 1e-5                        # logits and cache blocks
+REP_TOL = 3.3e-6                        # the same with rows and caches whole
 PMEAN_JAX_TOL, PMEAN_EXACT_TOL = 1e-6, 0.05
 METRIC_TOL = 1e-5                       # tests/test_torch_train.py's
 CACHE_MESHES = {"4x2": {"data": 4, "model": 2},
@@ -567,6 +568,41 @@ def test_sharded_prefill_and_decode_match_single_process(ranks, arch):
         idx = ranks[0][f"{pre}/cache/{k}@idx"]
         axis = 2 if arch == "whisper_base" else 1
         assert idx[axis][1] - idx[axis][0] == L.SERVE_LEN // 2, k
+
+
+@pytest.mark.parametrize("arch", L.SERVE_ARCHS)
+def test_replicated_rows_prefill_and_decode_match_single_process(ranks, arch):
+    """The same prefill and decode steps with 2 rows (which do not split
+    over 4 "data" ranks) and a cache of 31 positions (which does not split
+    over 2 "model" ranks): `ax.constrain` drops both axes, so every rank
+    holds all rows of the logits and every position of each cache, within
+    3.3e-6 of the largest |value| (at least 1) of the single process's
+    (the logits still split their vocabulary over "model")."""
+    b, length = L.SERVE_CASES["serve_rep"]
+    logits, caches = L.single_serve(arch, "serve_rep")
+    pre = f"serve_rep/{arch}"
+    for r, rec in enumerate(ranks):
+        for j, want in enumerate(logits):
+            key = f"{pre}/logits{j}"
+            assert rec[f"{key}@idx"][0].tolist() == [0, b], (r, j)
+            err = float(np.abs(rec[key] - _block_of(rec, key, want)).max())
+            assert err < REP_TOL * max(1.0, float(np.abs(want).max())), \
+                (r, j, err)
+        for k, want in caches.items():
+            key = f"{pre}/cache/{k}"
+            blk = _block_of(rec, key, want)
+            assert rec[key].shape == blk.shape, (r, k)
+            err = float(np.abs(rec[key] - blk).max())
+            assert err < REP_TOL * max(1.0, float(np.abs(want).max())), \
+                (r, k, err)
+    # the caches the 8-row case splits along their length stay whole
+    sharded = [k for k in caches if k.rsplit("/", 1)[-1] in ("k", "ckv")]
+    assert sharded or arch == "mamba2_370m", arch
+    for k in sharded:
+        idx = ranks[0][f"{pre}/cache/{k}@idx"]
+        axis = 2 if arch == "whisper_base" else 1
+        assert idx[axis].tolist() == [0, length], (k, idx)
+        assert idx[0 if arch != "whisper_base" else 1].tolist() == [0, b], k
 
 
 # --------------------------------- the dry-run against a rank, pod meshes ---
