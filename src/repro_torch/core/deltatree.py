@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import layout
 from repro_torch.core.layout import EMPTY, ROUTE_LEFT
+from repro_torch.obs import trace as TR
 
 NONE = -1
 OP_SEARCH, OP_INSERT, OP_DELETE = 0, 1, 2
@@ -563,6 +564,7 @@ def _gather_live(cfg: TreeConfig, t: DeltaTree, dn: int):
     return allv, int(live.sum()) + int(t.bcount[dn])
 
 
+@TR.traced("maint.rebalance")
 def _rebalance(cfg: TreeConfig, t: DeltaTree, dn: int) -> DeltaTree:
     """Paper REBALANCE: rebuild ``dn``'s (childless) tree at minimal height
     from its live leaves + buffer (the mirror-swap, in place)."""
@@ -699,14 +701,19 @@ def _process_ins(cfg: TreeConfig, t: DeltaTree, dn: int):
     (t, rebuilds, expands) — the deltas that feed ``MaintenanceStats``
     (expands counts child ΔNodes allocated)."""
     dn = int(dn)
-    pos = _pos_list(cfg)
     total = int(t.nlive[dn]) + int(t.bcount[dn])
     if int(t.nchild[dn]) == 0 and total <= cfg.half_cap:
         return _rebalance(cfg, t, dn), 1, 0
+    return _expand(cfg, t, dn)
 
-    # Expand: route every buffered value one hop toward its home — place or
-    # grow in this ΔNode, move into a child's buffer, or EXPAND a full
-    # bottom leaf into a fresh child ΔNode (paper Fig. 5b) and move into it.
+
+@TR.traced("maint.expand")
+def _expand(cfg: TreeConfig, t: DeltaTree, dn: int):
+    """Paper EXPAND: route every buffered value of ``dn`` one hop toward
+    its home — place or grow in this ΔNode, move into a child's buffer, or
+    expand a full bottom leaf into a fresh child ΔNode (paper Fig. 5b) and
+    move into it.  Returns (t, 0, child ΔNodes allocated)."""
+    pos = _pos_list(cfg)
     ft0 = int(t.free_top)
     for i in range(cfg.buf_cap):
         pv = int(t.buf[dn, i])
@@ -757,6 +764,7 @@ def _process_ins(cfg: TreeConfig, t: DeltaTree, dn: int):
 # --------------------------------------------------------------------------
 
 
+@TR.traced("maint.merge")
 def _process_del(cfg: TreeConfig, t: DeltaTree, dn: int):
     """Delete-side repair of ΔNode ``dn`` (Merge).  Returns (t, merged) —
     the delta that feeds ``MaintenanceStats``."""

@@ -117,7 +117,6 @@ def delta_walk(value: torch.Tensor, child: torch.Tensor, root,
       cand:     min left-turn router over the whole walk (successor lower
                 bound; ``walk_big(dtype)`` when no left turn happened)
     """
-    TR.bump("delta_walk.dispatch")
     if max_rounds is None:
         max_rounds = walk_round_cap(height, value.shape[0])
     q_tile = _resolve_q_tile(q_tile, height,
@@ -150,11 +149,9 @@ def _delta_walk(value, child, roots, queries, *, height, max_rounds, q_tile):
     cand = torch.full((k,), big, dtype=value.dtype, device=dev)
     rounds = 0
     while rounds < max_rounds and not bool(resolved.all()):
-        with TR.annotate("delta_walk.round"):
-            dnc = dn.clamp(0, value.shape[0] - 1).long()
-            lv, lb, nxt, rcand = veb_walk_rows(
-                value[dnc], child[dnc], queries, height=height,
-                q_tile=q_tile)
+        dnc = dn.clamp(0, value.shape[0] - 1).long()
+        lv, lb, nxt, rcand = veb_walk_rows(
+            value[dnc], child[dnc], queries, height=height, q_tile=q_tile)
         act = ~resolved
         done_now = act & (nxt < 0)
         final_dn = torch.where(done_now, dn, final_dn)
@@ -236,7 +233,6 @@ def delta_scan(value: torch.Tensor, mark: torch.Tensor, child: torch.Tensor,
       more: bool — the row filled with live items remaining; resume from
             ``key_of(out[lane, n-1])``
     """
-    TR.bump("delta_scan.dispatch")
     if max_rounds is None:
         max_rounds = scan_round_cap(height, value.shape[0], max_out)
     starts = starts.to(value.dtype).contiguous()

@@ -23,6 +23,14 @@ per-phase budget, same ΔNode order, same round count.
 JAX's ``lax.cond`` / ``fori_loop(0, budget)`` with no-op iterations become
 Python loops over the real entries; the per-op and per-ΔNode work reads
 the rows it needs to the host (`repro_torch.core.deltatree`).
+
+Spans (`repro_torch.obs.trace`, under ``REPRO_TRACE``): ``maint.batch`` is
+one `run_update` or `flush` call; a round's op phase is ``maint.ops``,
+with the vectorized fast path ``maint.fastpath`` and the one-by-one
+leftovers ``maint.seq`` inside it (the counter ``maint.seq_ops`` counts
+the ops those ran); its repairs are ``maint.sweep``, each repair inside it
+``maint.rebalance``, ``maint.expand`` or ``maint.merge``
+(`core.deltatree`).
 """
 
 from __future__ import annotations
@@ -88,30 +96,38 @@ def _ops_phase(cfg, t, results, pending, kinds, keys, payloads, budget):
         return t, results, pending, torch.zeros_like(keys)
     dns, bs = _positions(cfg, t, cfg.qpack(keys))
     if cfg.parallel_updates:
-        t, results, pending = DT._parallel_fastpath(
-            cfg, t, kinds, keys, payloads, results, pending, dns, bs)
+        with TR.annotate("maint.fastpath"):
+            t, results, pending = DT._parallel_fastpath(
+                cfg, t, kinds, keys, payloads, results, pending, dns, bs)
     if not bool(pending.any()):
         return t, results, pending, dns
-
-    pend, res = pending.tolist(), results.tolist()
-    kinds_h, keys_h, pays_h = kinds.tolist(), keys.tolist(), payloads.tolist()
-    hints = cfg.engine == "lockstep"
-    dns_h, bs_h = (dns.tolist(), bs.tolist()) if hints else (None, None)
-    for i in [j for j, p in enumerate(pend) if p][:budget]:
-        # batch order is the linearization: an op waits while an *earlier*
-        # op on the same key is still pending (e.g. an insert blocked on a
-        # full buffer), else a later delete would miss its predecessor
-        if any(pend[j] and keys_h[j] == keys_h[i] for j in range(i)):
-            continue
-        dn0, b0 = (dns_h[i], bs_h[i]) if hints else (None, None)
-        if kinds_h[i] == DT.OP_INSERT:
-            t, ok, pd = DT._insert_op(cfg, t, keys_h[i], pays_h[i], dn0, b0)
-        else:
-            t, ok, pd = DT._delete_op(cfg, t, keys_h[i], dn0, b0)
-        res[i], pend[i] = ok, pd
-    dev = results.device
-    return (t, torch.tensor(res, dtype=torch.bool, device=dev),
-            torch.tensor(pend, dtype=torch.bool, device=dev), dns)
+    with TR.annotate("maint.seq"):
+        pend, res = pending.tolist(), results.tolist()
+        kinds_h, keys_h = kinds.tolist(), keys.tolist()
+        pays_h = payloads.tolist()
+        hints = cfg.engine == "lockstep"
+        dns_h, bs_h = (dns.tolist(), bs.tolist()) if hints else (None, None)
+        ran = 0
+        for i in [j for j, p in enumerate(pend) if p][:budget]:
+            # batch order is the linearization: an op waits while an
+            # *earlier* op on the same key is still pending (e.g. an insert
+            # blocked on a full buffer), else a later delete would miss its
+            # predecessor
+            if any(pend[j] and keys_h[j] == keys_h[i] for j in range(i)):
+                continue
+            dn0, b0 = (dns_h[i], bs_h[i]) if hints else (None, None)
+            if kinds_h[i] == DT.OP_INSERT:
+                t, ok, pd = DT._insert_op(cfg, t, keys_h[i], pays_h[i], dn0,
+                                          b0)
+            else:
+                t, ok, pd = DT._delete_op(cfg, t, keys_h[i], dn0, b0)
+            res[i], pend[i] = ok, pd
+            ran += 1
+        TR.bump("maint.seq_ops", ran)
+        dev = results.device
+        results = torch.tensor(res, dtype=torch.bool, device=dev)
+        pending = torch.tensor(pend, dtype=torch.bool, device=dev)
+    return t, results, pending, dns
 
 
 # --------------------------------------------------------------------------
@@ -253,8 +269,9 @@ def _run_relaxed(cfg, policy: MaintenancePolicy, t, kinds, keys, payloads,
             t, results, pending, dns = _ops_phase(
                 cfg, t, results, pending, kinds, keys, payloads, budget)
         if repairs < vol and _busy(t):
-            t, work, repairs, residual = _voluntary_phase(
-                cfg, t, work, repairs, residual, vol)
+            with TR.annotate("maint.sweep"):
+                t, work, repairs, residual = _voluntary_phase(
+                    cfg, t, work, repairs, residual, vol)
         fmask = _forced_mask(cfg, t, pending, residual, dns)
         if bool(fmask.any()):
             with TR.annotate("maint.sweep"):
@@ -276,26 +293,27 @@ def run_update(cfg, t, kinds, keys, payloads=None):
     Returns (tree, results[K] bool, MaintenanceStats); the tree is updated
     in place.
     """
-    policy = parse_policy(cfg.maintenance)
-    dev = t.value.device
-    kinds = torch.as_tensor(kinds, dtype=torch.int32, device=dev)
-    keys = torch.as_tensor(keys, dtype=torch.int32, device=dev)
-    k = keys.shape[0]
-    if payloads is None:
-        payloads = torch.zeros(k, dtype=torch.int32, device=dev)
-    payloads = torch.as_tensor(payloads, dtype=torch.int32, device=dev)
-    results = torch.zeros(k, dtype=torch.bool, device=dev)
-    pending = kinds != DT.OP_SEARCH
-    budget = min(k, 64)  # sequential work per round (leftovers re-round)
-    if policy.eager:
-        t, results, rounds, work = _run_eager(
-            cfg, t, kinds, keys, payloads, results, pending, budget)
-    else:
-        t, results, rounds, work = _run_relaxed(
-            cfg, policy, t, kinds, keys, payloads, results, pending, budget)
-    stats = MaintenanceStats(
-        rounds=rounds, rebuilds=work[0], expands=work[1], merges=work[2],
-        pending=pending_count(cfg, t), reclaimed=work[3])
+    with TR.annotate("maint.batch"):
+        policy = parse_policy(cfg.maintenance)
+        dev = t.value.device
+        kinds = torch.as_tensor(kinds, dtype=torch.int32, device=dev)
+        keys = torch.as_tensor(keys, dtype=torch.int32, device=dev)
+        k = keys.shape[0]
+        if payloads is None:
+            payloads = torch.zeros(k, dtype=torch.int32, device=dev)
+        payloads = torch.as_tensor(payloads, dtype=torch.int32, device=dev)
+        results = torch.zeros(k, dtype=torch.bool, device=dev)
+        pending = kinds != DT.OP_SEARCH
+        budget = min(k, 64)  # sequential work per round (leftovers re-round)
+        if policy.eager:
+            t, results, rounds, work = _run_eager(
+                cfg, t, kinds, keys, payloads, results, pending, budget)
+        else:
+            t, results, rounds, work = _run_relaxed(
+                cfg, policy, t, kinds, keys, payloads, results, pending, budget)
+        stats = MaintenanceStats(
+            rounds=rounds, rebuilds=work[0], expands=work[1], merges=work[2],
+            pending=pending_count(cfg, t), reclaimed=work[3])
     return t, results, stats
 
 
@@ -305,12 +323,13 @@ def flush(cfg, t, budget: int = 64):
     followed by ``flush(budget=min(K, 64))`` reproduces the eager tree bit
     for bit whenever no op was force-blocked mid-batch.  Returns (tree,
     MaintenanceStats)."""
-    rounds, work = 0, (0, 0, 0, 0)
-    while rounds < cfg.max_rounds and _busy(t):
-        with TR.annotate("maint.sweep"):
-            t, work = _maint_phases(cfg, t, work, budget)
-        rounds += 1
-    stats = MaintenanceStats(
-        rounds=rounds, rebuilds=work[0], expands=work[1], merges=work[2],
-        pending=pending_count(cfg, t), reclaimed=work[3])
+    with TR.annotate("maint.batch"):
+        rounds, work = 0, (0, 0, 0, 0)
+        while rounds < cfg.max_rounds and _busy(t):
+            with TR.annotate("maint.sweep"):
+                t, work = _maint_phases(cfg, t, work, budget)
+            rounds += 1
+        stats = MaintenanceStats(
+            rounds=rounds, rebuilds=work[0], expands=work[1], merges=work[2],
+            pending=pending_count(cfg, t), reclaimed=work[3])
     return t, stats

@@ -8,10 +8,12 @@ Unset (or ``0``) makes every span helper a no-op.  With ``REPRO_TRACE=1``:
   ``torch.profiler.record_function`` range, which a ``torch.profiler``
   trace shows on the host timeline beside the kernels it launched.  The
   JAX package separates host spans from device-side scopes; eager PyTorch
-  has one kind, so both names map to it.  Each completed span also records
-  a host wall-clock event for `write_chrome_trace`.
-- ``bump(name)`` counts an event (``delta_walk.dispatch`` counts walk
-  dispatches); ``counters()`` / ``reset_counters()`` read and clear them.
+  has one kind, so both names map to it.  Each span entry counts under its
+  own name, and each completed span records a host wall-clock event for
+  `write_chrome_trace`.
+- ``bump(name, n)`` counts an event (``maint.seq_ops`` counts the update
+  ops applied one by one); ``counters()`` / ``reset_counters()`` read and
+  clear them.
 
 Unconditional (asking for the file is the opt-in):
 
@@ -21,6 +23,12 @@ Unconditional (asking for the file is the opt-in):
   synchronizes the card before the capture closes.
 - ``write_chrome_trace(path)`` dumps the recorded span events as a
   Chrome-trace / perfetto JSON timeline (host wall clock only).
+
+The events are stamped on the profiler's clock: ``ts`` is microseconds
+since the Unix epoch (``time.time_ns``), where a ``torch.profiler``
+event sits at ``prof.profiler.kineto_results.trace_start_ns() / 1e3 +
+evt.time_range.start``.  So the ring can be laid over a ``capture``
+trace and its idle gaps.
 
 Counters and the event ring share one module lock: the serve layer's
 maintenance worker may run on its own thread.
@@ -44,7 +52,6 @@ _EVENTS: list[dict] = []
 _EVENT_CAP = 200_000
 _DROPPED = "trace.events_dropped"
 _LOCK = threading.Lock()
-_EPOCH = time.perf_counter()
 
 
 def enabled() -> bool:
@@ -77,11 +84,11 @@ def reset_events() -> None:
         _EVENTS.clear()
 
 
-def _record_event(name: str, t0: float, t1: float) -> None:
+def _record_event(name: str, t0: int, t1: int) -> None:
+    """``t0`` / ``t1`` in ``time.time_ns`` nanoseconds."""
     ev = {"name": name, "ph": "X", "pid": os.getpid(),
           "tid": threading.get_ident(),
-          "ts": round((t0 - _EPOCH) * 1e6, 3),
-          "dur": round((t1 - t0) * 1e6, 3)}
+          "ts": t0 / 1e3, "dur": (t1 - t0) / 1e3}
     with _LOCK:
         if len(_EVENTS) < _EVENT_CAP:
             _EVENTS.append(ev)
@@ -110,11 +117,11 @@ def _timed_span(name: str):
     import torch
 
     with torch.profiler.record_function(name):
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         try:
             yield
         finally:
-            _record_event(name, t0, time.perf_counter())
+            _record_event(name, t0, time.time_ns())
 
 
 def span(name: str):

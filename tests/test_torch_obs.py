@@ -341,6 +341,104 @@ def test_trace_capture_writes_a_trace(tmp_path):
     assert len(prof.key_averages()) > 0
 
 
+def test_trace_ring_on_the_profilers_clock(tmp_path, monkeypatch):
+    """A span's ring event and its ``record_function`` event start within
+    100 µs of each other once both are absolute (µs since the Unix epoch;
+    the median over five spans, since the first entry pays the profiler's
+    warm-up)."""
+    import statistics
+
+    import torch
+
+    monkeypatch.setenv(trace.ENV, "1")
+    trace.reset_events()
+    with trace.capture(str(tmp_path)) as prof:
+        for _ in range(5):
+            with trace.span("obs-clock"):
+                torch.arange(8).sum()
+    base = prof.profiler.kineto_results.trace_start_ns() / 1e3
+    prof_ts = sorted(base + e.time_range.start for e in prof.events()
+                     if e.name == "obs-clock")
+    ring_ts = sorted(e["ts"] for e in trace.events()
+                     if e["name"] == "obs-clock")
+    trace.reset_events()
+    assert len(prof_ts) == len(ring_ts) == 5
+    assert statistics.median(abs(r - p)
+                             for p, r in zip(prof_ts, ring_ts)) < 100
+
+
+# A small tree's update calls that force every repair kind and ops on the
+# one-by-one path: a dense run of inserts (full bottom leaves: buffered
+# inserts, Rebalance, Expand), then deletes that thin ΔNodes out (Merge).
+_UPDATE_SCRIPT = (
+    (1, np.arange(100, 116)),
+    (1, np.arange(200, 248, 2)),
+    (2, KEYS[:40]),
+    (2, np.arange(200, 248, 2)),
+)
+_REPAIRS = ("maint.rebalance", "maint.expand", "maint.merge")
+
+
+def _run_update_script(policy):
+    """The script's update calls, then a flush.  Returns (the calls'
+    results and stats, the live items, the number of calls)."""
+    from repro_torch.api import OpBatch
+
+    ix = make_index("deltatree", initial=KEYS, height=4, max_dnodes=256,
+                    buf_cap=8, engine="lockstep", maintenance=policy,
+                    device="cpu")
+    out = []
+    for kind, keys in _UPDATE_SCRIPT:
+        keys = np.asarray(keys, np.int32)
+        ix, res, st = ix.update(OpBatch.mixed(
+            np.full(keys.size, kind, np.int32), keys, np.zeros_like(keys)))
+        out.append((res.tolist(), st))
+    ix, st = ix.flush()
+    out.append((None, st))
+    return out, ix.live_items(), len(out)
+
+
+def _inside(ev, outer) -> bool:
+    # ring times are float µs since the epoch, good to 0.25 µs there
+    return (ev["ts"] >= outer["ts"]
+            and ev["ts"] + ev["dur"] <= outer["ts"] + outer["dur"] + 1.0)
+
+
+@pytest.mark.parametrize("policy", ["eager", "deferred", "budgeted:2"])
+def test_update_spans_count_the_repairs(policy, monkeypatch):
+    """Under ``REPRO_TRACE=1`` the update path's spans count what
+    ``MaintenanceStats`` counts, every repair sits inside a sweep and every
+    sweep inside an update call; unset, the same calls record nothing and
+    give the same results."""
+    monkeypatch.setenv(trace.ENV, "1")
+    trace.reset_counters()
+    trace.reset_events()
+    traced, live, calls = _run_update_script(policy)
+    c, evs = trace.counters(), trace.events()
+    trace.reset_counters()
+    trace.reset_events()
+    stats = [st for _, st in traced]
+    assert c["maint.rebalance"] == sum(st.rebuilds for st in stats) > 0
+    assert sum(st.expands for st in stats) > 0 and c["maint.expand"] >= 1
+    assert c["maint.merge"] >= sum(st.merges for st in stats) > 0
+    assert c["maint.batch"] == calls
+    assert c["maint.seq_ops"] >= 1 and c["maint.seq"] >= 1
+    assert "trace.events_dropped" not in c
+    by = {n: [e for e in evs if e["name"] == n]
+          for n in ("maint.batch", "maint.sweep") + _REPAIRS}
+    assert all(by[n] for n in by)
+    for n in _REPAIRS:
+        assert all(any(_inside(e, s) for s in by["maint.sweep"])
+                   for e in by[n]), n
+    assert all(any(_inside(s, b) for b in by["maint.batch"])
+               for s in by["maint.sweep"])
+
+    monkeypatch.delenv(trace.ENV)
+    untraced = _run_update_script(policy)
+    assert trace.counters() == {} and trace.events() == []
+    assert untraced == (traced, live, calls)
+
+
 # ---------------------------------------------------------------- report ---
 
 
